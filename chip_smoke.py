@@ -1,0 +1,392 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (yolov3_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing its result on its own line:
+  1. build every CUDA source of yolov3_tpu_torch/csrc/ with nvcc (sm_90a);
+  2. the greedy-NMS kernel against its plain version at the serving,
+     fallback and val-grade shapes: outputs equal;
+  3. the candidate-score kernel against its plain version on bf16 head
+     outputs of yolov3@640 at batch 32;
+  4. the main path: full-width yolov3 (seeded random weights, detections
+     planted on the head bias), 64 concurrent 640x640 requests through
+     MicroBatcher(max_batch=32), one dense batch that takes the overflow
+     fallback, launch counts of both kernels over that run, a profile of
+     the served batch by kernel group, and the fast path's detections
+     against the plain score and NMS functions.
+Then a JSON line of per-kernel numbers ({"kernels": [...]}), a JSON line of
+the other measurements, the card's name and power limit, and, last,
+{"ok": true, "device": {...}}. Any failure raises: exit code != 0.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+NMS_OPS_PER_IOU = 17  # f32 operations of one IoU test + compare in csrc/nms.cu
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def cuda_ms(fn, iters=20, warmup=2):
+    """Mean milliseconds per fn() call between CUDA events over `iters`
+    back-to-back calls (host launch overhead included where it dominates)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel, iters=20):
+    """Mean device time per fn() call spent in kernels whose name contains
+    `kernel` (torch.profiler's CUDA activity; launch overhead excluded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name)
+    check(us > 0, f"the profiler saw no {kernel} kernel")
+    return us / iters / 1e3
+
+
+def make_candidates(rng, B, K, device, nc=80):
+    """Random prefiltered candidates: score-sorted, a quarter of the slots invalid."""
+    xy = rng.uniform(0, 640, size=(B, K, 2)).astype(np.float32)
+    wh = rng.uniform(8, 160, size=(B, K, 2)).astype(np.float32)
+    boxes = np.concatenate([xy - wh / 2, xy + wh / 2], -1)
+    scores = rng.uniform(0.25, 1.0, size=(B, K)).astype(np.float32)
+    scores[:, K - K // 4:] = -1.0
+    scores[:, 1:K // 8:7] = scores[:, 0:K // 8 - 1:7]  # exact ties: lowest index first
+    order = np.argsort(-scores, axis=1, kind="stable")
+    scores = np.take_along_axis(scores, order, 1)
+    boxes = np.take_along_axis(boxes, order[..., None], 1)
+    cls = rng.integers(0, nc, size=(B, K)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (boxes + cls[..., None] * 7680.0, boxes, scores, cls)]
+
+
+NMS_SHAPES = (("serving", 32, 448, 0.45), ("fallback", 4, 8192, 0.45), ("val", 2, 30000, 0.6))
+
+
+def phase_nms(rng, shapes=NMS_SHAPES, device="cuda"):
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms, greedy_nms_plain
+
+    rows = {}
+    for label, B, K, iou in shapes:
+        args = make_candidates(rng, B, K, device)
+        out_k, n_k = greedy_nms(*args, iou, 300)
+        out_p, n_p = greedy_nms_plain(*args, iou, 300)
+        torch.cuda.synchronize()
+        check(torch.equal(n_k, n_p), f"greedy_nms {label}: n differs from the plain version")
+        err = float((out_k - out_p).abs().max())
+        check(torch.equal(out_k, out_p), f"greedy_nms {label}: rows differ (max abs err {err})")
+        ms = device_ms(lambda: greedy_nms(*args, iou, 300), "greedy_nms_kernel")
+        launch_ms = cuda_ms(lambda: greedy_nms(*args, iou, 300))
+        plain_ms = cuda_ms(lambda: greedy_nms_plain(*args, iou, 300), iters=3, warmup=1)
+        nbytes = B * K * 40 + B * 300 * 24 + B * 4
+        ops = int(n_k.sum()) * K * NMS_OPS_PER_IOU
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+        bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
+        rows[label] = dict(B=B, K=K, max_det=300, n_mean=float(n_k.float().mean()), max_abs_err=err,
+                           ms=ms, launch_ms=launch_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+        print(f"K1 greedy_nms {label}: B={B} K={K} equal to plain, n_mean={rows[label]['n_mean']:.1f} "
+              f"kernel {ms:.4f} ms device ({launch_ms:.4f} ms with launch), plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.5f} ms ({bound_by}), "
+              f"{ms / rows[label]['n_mean'] * 1e3 if rows[label]['n_mean'] else float('nan'):.2f} us/step",
+              flush=True)
+    return rows
+
+
+def phase_score(rng, bs=32, cells=(6400, 1600, 400), conf=0.25, device="cuda"):
+    """cells: yolov3@640's 80x80, 40x40 and 20x20 grids."""
+    from yolov3_tpu_torch.ops.score_triton import masked_scores, masked_scores_plain
+
+    na, no = 3, 85
+    heads = []
+    for m in cells:
+        x = rng.normal(-3.0, 2.0, size=(bs, m, na * no)).astype(np.float32)
+        heads.append(torch.from_numpy(x).to(device, torch.bfloat16))
+    t0 = time.perf_counter()
+    masked_scores(heads[0], na, no, conf)
+    torch.cuda.synchronize()
+    print(f"K2 masked_scores: triton compile + first launch {time.perf_counter() - t0:.2f} s", flush=True)
+    err = 0.0
+    for f in heads:
+        s_k, a_k = masked_scores(f, na, no, conf)
+        s_p, a_p = masked_scores_plain(f, na, no, conf)
+        check(torch.equal(a_k, a_p), f"masked_scores {tuple(f.shape)}: class args differ")
+        both = (s_k >= 0) & (s_p >= 0)
+        e = float((s_k - s_p)[both].abs().max()) if bool(both.any()) else 0.0
+        err = max(err, e)
+        check(e <= 1e-6, f"masked_scores {tuple(f.shape)}: scores differ by {e} > 1e-6")
+        v = f.reshape(bs, -1, no).float()
+        obj = torch.sigmoid(v[..., 4])
+        score = obj * torch.sigmoid(v[..., 5:].amax(-1))
+        # within 1e-6 of the threshold either side may round across it
+        near = ((score - conf).abs() <= 1e-6) | ((obj - conf).abs() <= 1e-6)
+        flips = ((s_k >= 0) != (s_p >= 0)) & ~near
+        check(not bool(flips.any()), f"masked_scores {tuple(f.shape)}: valid masks differ")
+        print(f"K2 masked_scores {tuple(f.shape)}: args equal, valid {int((s_k >= 0).sum())}, "
+              f"max score err {e:.3g}", flush=True)
+
+    def run(fn):
+        return lambda: [fn(f, na, no, conf) for f in heads]
+
+    ms = device_ms(run(masked_scores), "score_kernel")
+    launch_ms = cuda_ms(run(masked_scores))
+    plain_ms = cuda_ms(run(masked_scores_plain))
+    nbytes = sum(f.numel() * 2 + f.shape[0] * f.shape[1] * na * 8 for f in heads)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"K2 masked_scores bs{bs}, 3 scales: kernel {ms:.4f} ms device ({launch_ms:.4f} ms with "
+          f"launches), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB)", flush=True)
+    return dict(max_abs_err=err, ms=ms, launch_ms=launch_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes")
+
+
+def plant_detections(model, base, gains, deltas, cls_bump=12.0):
+    """Bias the Detect head so it emits real candidates (bench.py:_plant_detections):
+    scale i's objectness kernel column times gains[i] and its bias plus
+    deltas[i]; every class bias plus cls_bump, so conf = obj * cls_max ~ obj."""
+    detect = model.model[-1]
+    no = detect.no
+    with torch.no_grad():
+        for i, conv in enumerate(detect.m):
+            w, b = base[i][0].clone(), base[i][1].clone()
+            w[4::no] *= float(gains[i])  # output channel a*no + 4 of every anchor a
+            b[4::no] += float(deltas[i])
+            for a in range(detect.na):
+                b[a * no + 5:(a + 1) * no] += cls_bump
+            conv.weight.copy_(w)
+            conv.bias.copy_(b)
+
+
+def calibrate(model, probe, targets=(112.0, 28.0, 10.0), conf=0.25):
+    """Gains and bias shifts that put about targets[i] cells per image of scale i
+    above conf: gains widen the objectness logits' spread to ~2, the shift
+    moves the (1 - target/cells) quantile to the conf crossing."""
+    detect = model.model[-1]
+    with torch.inference_mode():
+        feats = model(torch.as_tensor(probe, device=model.device).float() / 255.0, raw=True)
+    gains, deltas = [], []
+    for i, f in enumerate(feats):
+        bs, ny, nx, _ = f.shape
+        b0 = detect.m[i].bias.detach().reshape(detect.na, detect.no)[:, 4].float()
+        obj = f.reshape(bs, ny * nx, detect.na, detect.no)[..., 4].float()
+        spread = obj - b0  # the part the kernel column scales
+        g = float(np.clip(2.0 / max(float(spread.std()), 1e-8), 1.0, 1e6))
+        planted = (g * spread + b0).reshape(-1)
+        q = float(torch.quantile(planted, 1.0 - targets[i] / (ny * nx * detect.na)))
+        gains.append(g)
+        deltas.append(float(np.log(conf / (1 - conf))) + 0.05 - q)
+    return gains, deltas
+
+
+KERNEL_GROUPS = (  # kernel-name substrings -> the layer it belongs to
+    ("K1 greedy_nms", ("greedy_nms",)),
+    ("K2 masked_scores", ("score_kernel",)),
+    ("convolutions (cuDNN, cuBLAS)", ("conv", "gemm", "xmma", "cutlass", "sm90", "cudnn", "nhwc", "nvjet")),
+    ("sort (top-k)", ("sort", "radix")),
+)
+
+
+def profile_fast_path(infer, imgs, iters=3):
+    """Device time of `iters` served batches by layer, and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    infer(imgs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            infer(imgs)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(spans, "the profiler saw no device activity")
+    by_group, by_name, busy, edge = {}, {}, 0.0, -1.0
+    for start, end, name in spans:
+        group = next((g for g, keys in KERNEL_GROUPS if any(k in name.lower() for k in keys)), "other")
+        by_group[group] = by_group.get(group, 0.0) + (end - start)
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+        busy += max(0.0, end - max(start, edge))
+        edge = max(edge, end)
+    parts = ", ".join(f"{g} {t / iters / 1e3:.3f} ms" for g, t in sorted(by_group.items(), key=lambda x: -x[1]))
+    print(f"profile, per batch of {imgs.shape[0]}: {parts}; device busy {busy / wall_us:.1%} "
+          f"of {wall_us / iters / 1e3:.3f} ms wall", flush=True)
+    for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:12]:
+        print(f"profile kernel {t / iters / 1e3:.3f} ms  {name[:110]}", flush=True)
+
+
+def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32):
+    from yolov3_tpu_torch.models.detect_head import decode_topk_nhwc
+    from yolov3_tpu_torch.ops import nms as nms_module
+    from yolov3_tpu_torch.ops.nms import nms_from_candidates
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms, greedy_nms_plain
+    from yolov3_tpu_torch.ops.score_triton import masked_scores, masked_scores_plain
+    from yolov3_tpu_torch.serve import MicroBatcher, build_batched_infer
+
+    frames = rng.integers(0, 256, size=(n_requests, imgsz, imgsz, 3), dtype=np.uint8)
+    base = [(c.weight.detach().clone(), c.bias.detach().clone()) for c in model.model[-1].m]
+    gains, deltas = calibrate(model, frames[:8])
+    plant_detections(model, base, gains, deltas)
+    infer = build_batched_infer(model)
+    batcher = MicroBatcher(infer, max_batch=max_batch, batch_wait_ms=50.0)
+    batcher.warmup(imgsz)
+    torch.cuda.synchronize()
+
+    # --- the main path: every launch from here to the count read is the path's own
+    greedy_nms.launches = 0
+    masked_scores.launches = 0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=n_requests) as pool:
+        results = [f.result() for f in [pool.submit(batcher.submit, im) for im in frames]]
+    serve_s = time.perf_counter() - t0
+
+    # dense batch: scale 0's objectness far above conf, so its top-k overflows;
+    # the fallback's batched_nms resolves greedy_nms in ops.nms, where it is
+    # wrapped here to record the candidate count K of each call
+    plant_detections(model, base, gains, [deltas[0] + 8.0, *deltas[1:]])
+    dense_infer = build_batched_infer(model)
+    seen_k = []
+    real_nms = nms_module.greedy_nms
+
+    def recording_nms(*args, **kwargs):
+        seen_k.append(args[2].shape[1])
+        return real_nms(*args, **kwargs)
+
+    nms_module.greedy_nms = recording_nms
+    try:
+        dense_dets, dense_n = dense_infer(frames[:8])
+        torch.cuda.synchronize()
+    finally:
+        nms_module.greedy_nms = real_nms
+        plant_detections(model, base, gains, deltas)
+    launches = {"greedy_nms": greedy_nms.launches, "masked_scores": masked_scores.launches}
+    # --- end of the main path
+
+    print(f"main path: {n_requests} requests in {serve_s:.3f} s = {n_requests / serve_s:.1f} img/s "
+          f"({batcher.calls} device calls, {infer.fallbacks} fallbacks), launches {launches}", flush=True)
+    check(batcher.requests == n_requests, f"batcher served {batcher.requests} of {n_requests}")
+    counts = []
+    for dets, n in results:
+        check(dets.shape == (n, 6) and np.isfinite(dets).all(), "request result malformed")
+        check((dets[:, 4] > 0).all() and (np.diff(dets[:, 4]) <= 0).all(), "rows not valid-first by score")
+        counts.append(n)
+    check(max(counts) > 0, "no request got a detection")
+    check(launches["greedy_nms"] > 0 and launches["masked_scores"] > 0, f"a kernel never launched: {launches}")
+    check(dense_infer.fallbacks == 1, "the dense batch did not take the full-decode fallback")
+    check(seen_k == [8192], f"fallback NMS ran at K={seen_k}, expected [8192]")
+    print(f"requests: n per image mean {np.mean(counts):.1f}, max {max(counts)}; dense batch fell back, "
+          f"K1 at K={seen_k[0]}, n mean {float(dense_n.float().mean()):.1f}", flush=True)
+
+    batch = frames[:max_batch]
+    imgs = torch.as_tensor(batch, device=model.device)
+
+    def one_batch():
+        dets, n = infer(imgs)
+        return dets
+
+    batch_ms = cuda_ms(one_batch, iters=10)
+    print(f"main path: {batch_ms:.3f} ms per batch of {max_batch} = "
+          f"{max_batch / batch_ms * 1e3:.1f} img/s (device-synchronised, inputs on the card)", flush=True)
+
+    profile_fast_path(infer, imgs)
+
+    # the fast path with kernels vs the plain score and NMS on the same bf16 head outputs
+    dets_k, n_k = infer(imgs)
+    with torch.inference_mode():
+        feats = infer.serving_model(imgs.to(torch.bfloat16) / 255.0, raw=True)
+        boxes, scores, cls_ids, ov = decode_topk_nhwc(feats, model.anchors_px, model.spec.strides,
+                                                      with_overflow=True, score_fn=masked_scores_plain)
+        dets_p, n_p = nms_from_candidates(boxes, scores, cls_ids, nms_fn=greedy_nms_plain)
+    n_k, n_p = np.asarray(n_k), n_p.cpu().numpy()
+    check(not bool(ov.any()), "the compared batch overflowed")
+    check((n_k == n_p).all(), f"fast path n {n_k.tolist()} != plain {n_p.tolist()}")
+    dk, dp = dets_k.cpu().numpy(), dets_p.cpu().numpy()
+    valid = np.arange(dk.shape[1])[None, :] < n_k[:, None]  # rows [0, n) of each image
+    box_err = float(np.abs(dk[..., :4] - dp[..., :4])[valid].max(initial=0.0))
+    conf_err = float(np.abs(dk[..., 4] - dp[..., 4])[valid].max(initial=0.0))
+    check(box_err <= 0.1 and conf_err <= 1e-3, f"fast path vs plain: box err {box_err}, conf err {conf_err}")
+    print(f"fast path vs plain kernels' versions: n equal (sum {int(n_k.sum())}), "
+          f"max box err {box_err:.3g} px, max conf err {conf_err:.3g}", flush=True)
+    return launches, dict(img_s=n_requests / serve_s, batch_ms=batch_ms)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke run needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    from yolov3_tpu_torch.ops import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    built = cuda_build.build_all()
+    print(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s with {cuda_build.nvcc()} "
+          f"for {gpu}", flush=True)
+    for name, (sec, log) in built.items():
+        info = [ln.strip() for ln in log.splitlines() if "registers" in ln or "bytes stack" in ln]
+        print(f"build {name}.cu: {sec:.1f} s; " + " | ".join(info), flush=True)
+
+    rng = np.random.default_rng(0)
+    nms_rows = phase_nms(rng)
+    score = phase_score(rng)
+    from yolov3_tpu_torch.models.detection import DetectionModel
+
+    model = DetectionModel.from_config("yolov3", seed=0)  # full width, nc=80, on the card
+    check(model.num_params() == 61949149, f"yolov3 has {model.num_params()} parameters")
+    launches, e2e = phase_main_path(rng, model)
+
+    serving = nms_rows["serving"]
+    kernels = [
+        dict(name="greedy_nms", route="cuda", source="yolov3_tpu_torch/csrc/nms.cu",
+             replaces="yolov3_tpu/ops/nms_pallas.py:29", launches=launches["greedy_nms"],
+             max_abs_err=max(r["max_abs_err"] for r in nms_rows.values()), ms=serving["ms"],
+             plain_ms=serving["plain_ms"], bound_ms=serving["bound_ms"], bound_by=serving["bound_by"],
+             library_ms=None),
+        dict(name="masked_scores", route="triton", source="yolov3_tpu_torch/ops/score_triton.py",
+             replaces="yolov3_tpu/ops/score_pallas.py:43", launches=launches["masked_scores"],
+             max_abs_err=score["max_abs_err"], ms=score["ms"], plain_ms=score["plain_ms"],
+             bound_ms=score["bound_ms"], bound_by=score["bound_by"], library_ms=None),
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"nms_shapes": nms_rows, "main_path": e2e}))
+    print(gpu)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

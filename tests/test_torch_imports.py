@@ -1,0 +1,60 @@
+"""Import hygiene of the PyTorch port: it never imports JAX, flax or the JAX
+package, and its entry points refuse to drop to the CPU on their own."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "yolov3_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "flax", "yolov3_tpu"}
+
+
+def imported_roots(path):
+    roots = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots += [(a.name.split(".")[0], node.lineno) for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.append((node.module.split(".")[0], node.lineno))
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = [(m, line) for m, line in imported_roots(path) if m in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_serve_import_loads_no_jax():
+    code = ("import sys, yolov3_tpu_torch.serve, yolov3_tpu_torch.models.convert; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'yolov3_tpu')); "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_device_none_raises_without_cuda(monkeypatch):
+    from yolov3_tpu_torch.models.detection import DetectionModel
+    from yolov3_tpu_torch.utils.general import select_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DetectionModel.from_config("yolov3-tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        select_device(None)
+    assert select_device("cpu") == torch.device("cpu")
+
+
+def test_wrappers_reject_other_devices():
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
+    from yolov3_tpu_torch.ops.score_triton import masked_scores
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        masked_scores(torch.zeros(1, 4, 255, device="meta"), 3, 85, 0.25)
+    z = torch.zeros(1, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        greedy_nms(torch.zeros(1, 4, 4, device="meta"), torch.zeros(1, 4, 4, device="meta"), z, z)

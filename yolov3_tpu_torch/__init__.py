@@ -1,0 +1,22 @@
+"""yolov3_tpu_torch — the PyTorch/CUDA port of yolov3_tpu, for NVIDIA Hopper.
+
+The module layout mirrors the JAX package (`yolov3_tpu`) so each function's
+counterpart is found under the same name. The port keeps the JAX package's
+public layouts (NHWC uint8 images in, (B, max_det, 6) f32 detections and
+(B,) counts out) and runs its hand-written kernels on the card:
+
+    ops/nms_cuda.py + csrc/nms.cu   greedy NMS (CUDA C++, built with nvcc)
+    ops/score_triton.py             candidate-score pass (Triton)
+
+Entry points take `device=None`, meaning "cuda"; without a CUDA device they
+raise unless the caller passes `device="cpu"`, where every kernel wrapper
+runs its plain PyTorch version.
+
+    from yolov3_tpu_torch.models.detection import DetectionModel
+    from yolov3_tpu_torch.serve import MicroBatcher, build_batched_infer
+    model = DetectionModel.from_config("yolov3", seed=0)
+    batcher = MicroBatcher(build_batched_infer(model), max_batch=32)
+    dets, n = batcher.submit(frame_640x640x3_uint8)
+"""
+
+__version__ = "0.1.0"
