@@ -9,12 +9,21 @@ Phases, each printing its result on its own line:
      fallback and val-grade shapes: outputs equal;
   3. the candidate-score kernel against its plain version on bf16 head
      outputs of yolov3@640 at batch 32;
-  4. the main path: full-width yolov3 (seeded random weights, detections
+  4. the conv3x3 + BatchNorm-statistics kernel against its plain version at
+     yolov3@640's train shapes (batch 8, bf16) and at small f32 and odd
+     shapes, with its time beside cuDNN's conv + var_mean;
+  5. the serving path: full-width yolov3 (seeded random weights, detections
      planted on the head bias), 64 concurrent 640x640 requests through
      MicroBatcher(max_batch=32), one dense batch that takes the overflow
      fallback, launch counts of both kernels over that run, a profile of
      the served batch by kernel group, and the fast path's detections
-     against the plain score and NMS functions.
+     against the plain score and NMS functions;
+  6. the train path: the same model in train mode, SGD with the default
+     hyper-parameters, 1 + 10 steps on one seeded batch of 8 640x640 images
+     with 8 boxes each; finite falling loss, moved parameters, BatchNorm
+     statistics and EMA, 33 launches of the conv+statistics kernel a step,
+     one step with the kernel against one with its plain version from the
+     same state, a profile of a step by kernel group.
 Then a JSON line of per-kernel numbers ({"kernels": [...]}), a JSON line of
 the other measurements, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Any failure raises: exit code != 0.
@@ -22,6 +31,7 @@ the other measurements, the card's name and power limit, and, last,
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -33,6 +43,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 NMS_OPS_PER_IOU = 17  # f32 operations of one IoU test + compare in csrc/nms.cu
 
 
@@ -56,21 +67,35 @@ def cuda_ms(fn, iters=20, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel, iters=20):
+def device_ms(fn, kernel, iters=20, per_call=1):
     """Mean device time per fn() call spent in kernels whose name contains
-    `kernel` (torch.profiler's CUDA activity; launch overhead excluded)."""
+    `kernel`, or one of them if it is a tuple; fn() launches `per_call` of
+    them (torch.profiler's CUDA activity; launch overhead excluded).
+
+    The profiler now and then loses events, mostly the first of a window, so
+    a few unmeasured calls run inside the window first and only the last
+    per_call * iters events count. If events are still missing after three
+    windows, the mean over the events seen is used and said so."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    need = per_call * iters
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name)
-    check(us > 0, f"the profiler saw no {kernel} kernel")
-    return us / iters / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3 + iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start
+                 for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+                 if e.device_type == torch.autograd.DeviceType.CUDA and any(k in e.name for k in names)]
+        if len(spans) >= need:
+            return sum(spans[-need:]) / iters / 1e3
+    check(spans, f"the profiler saw no {kernel} kernel")
+    print(f"device_ms: the profiler kept {len(spans)} of {need + 3 * per_call} {kernel} events; "
+          "their mean is used", flush=True)
+    return sum(spans) / len(spans) * per_call / 1e3
 
 
 def make_candidates(rng, B, K, device, nc=80):
@@ -156,7 +181,7 @@ def phase_score(rng, bs=32, cells=(6400, 1600, 400), conf=0.25, device="cuda"):
     def run(fn):
         return lambda: [fn(f, na, no, conf) for f in heads]
 
-    ms = device_ms(run(masked_scores), "score_kernel")
+    ms = device_ms(run(masked_scores), "score_kernel", per_call=len(heads))
     launch_ms = cuda_ms(run(masked_scores))
     plain_ms = cuda_ms(run(masked_scores_plain))
     nbytes = sum(f.numel() * 2 + f.shape[0] * f.shape[1] * na * 8 for f in heads)
@@ -337,6 +362,268 @@ def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32):
     return launches, dict(img_s=n_requests / serve_s, batch_ms=batch_ms)
 
 
+K3_KERNELS = ("conv3x3_stats", "bn_stats_finalize")  # the conv kernel and its fixed-order stats reduction
+# (label, dtype, B, H, W, Cin, Cout): yolov3@640's stride-1 3x3 convs at batch 8 (one per scale, and
+# the stem), then small f32 shapes and odd ones that take the kernels' narrow-tile, element-wise
+# load and element-wise store paths
+K3_SHAPES = (
+    ("160x160 64->128", torch.bfloat16, 8, 160, 160, 64, 128),
+    ("80x80 128->256", torch.bfloat16, 8, 80, 80, 128, 256),
+    ("40x40 256->512", torch.bfloat16, 8, 40, 40, 256, 512),
+    ("20x20 512->1024", torch.bfloat16, 8, 20, 20, 512, 1024),
+    ("stem 640x640 3->32", torch.bfloat16, 8, 640, 640, 3, 32),
+    ("odd 13x19 8->12", torch.bfloat16, 8, 13, 19, 8, 12),
+    ("odd 13x19 24->100", torch.bfloat16, 8, 13, 19, 24, 100),
+    ("odd 13x19 5->7", torch.bfloat16, 8, 13, 19, 5, 7),
+    ("f32 16x16 8->16", torch.float32, 8, 16, 16, 8, 16),
+    ("f32 8x24 4->8", torch.float32, 8, 8, 24, 4, 8),
+    ("f32 odd 13x19 5->7", torch.float32, 8, 13, 19, 5, 7),
+)
+K3_MAIN_SHAPE = "80x80 128->256"  # the row of the {"kernels": ...} line
+# y: one bf16 ulp of the plain version's rounding / f32 sums in another order
+K3_LIMITS = {torch.bfloat16: dict(y_rtol=8e-3, y_atol=1e-2, mean_atol=1e-3, var_rtol=1e-2),
+             torch.float32: dict(y_rtol=1e-4, y_atol=1e-4, mean_atol=1e-5, var_rtol=1e-3)}
+
+
+def phase_conv_bn(shapes=K3_SHAPES, device="cuda", timed=True):
+    """The conv3x3 + BN-statistics kernel against its plain version on seeded
+    inputs (y ~ N(0, 1) per channel), and, for the bf16 model shapes, its time
+    beside the plain version and cuDNN's conv + var_mean."""
+    import torch.nn.functional as F
+
+    from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats, conv3x3_bn_stats_plain
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = {}
+    for label, dtype, B, H, W, Cin, Cout in shapes:
+        x = torch.randn((B, H, W, Cin), generator=gen, device=device).to(dtype)
+        w = (torch.randn((3, 3, Cin, Cout), generator=gen, device=device) / (9 * Cin) ** 0.5).to(dtype)
+        with torch.no_grad():
+            y_k, mean_k, var_k = conv3x3_bn_stats(x, w)
+            y_p, mean_p, var_p = conv3x3_bn_stats_plain(x, w)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        lim = K3_LIMITS[dtype]
+        check(y_k.shape == (B, H, W, Cout) and y_k.dtype == dtype and mean_k.shape == var_k.shape == (Cout,),
+              f"conv3x3_bn_stats {label}: wrong output shapes or types")
+        y_err = (y_k.float() - y_p.float()).abs()
+        y_bad = int((y_err > lim["y_atol"] + lim["y_rtol"] * y_p.float().abs()).sum())
+        mean_err = float((mean_k - mean_p).abs().max())
+        var_err = float(((var_k - var_p).abs() / var_p.abs()).max())
+        row = dict(dtype=str(dtype).split(".")[-1], B=B, H=H, W=W, Cin=Cin, Cout=Cout,
+                   max_abs_err=float(y_err.max()), mean_abs_err=mean_err, var_rel_err=var_err)
+        check(y_bad == 0, f"conv3x3_bn_stats {label}: {y_bad} elements of y beyond rtol {lim['y_rtol']} "
+                          f"atol {lim['y_atol']} (max abs err {row['max_abs_err']})")
+        check(mean_err <= lim["mean_atol"], f"conv3x3_bn_stats {label}: mean err {mean_err} > {lim['mean_atol']}")
+        check(var_err <= lim["var_rtol"], f"conv3x3_bn_stats {label}: var rel err {var_err} > {lim['var_rtol']}")
+        msg = (f"K3 conv3x3_bn_stats {label} {row['dtype']} B={B}: y max abs err {row['max_abs_err']:.3g}, "
+               f"mean err {mean_err:.3g}, var rel err {var_err:.3g}")
+        if timed and dtype == torch.bfloat16 and not label.startswith("odd"):
+            x_nchw = x.permute(0, 3, 1, 2)  # channels_last view
+            w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+            def library():
+                y = F.conv2d(x_nchw, w_oihw, padding=1)
+                return torch.var_mean(y.float(), dim=(0, 2, 3), correction=0)
+
+            with torch.no_grad():
+                row["ms"] = device_ms(lambda: conv3x3_bn_stats(x, w), K3_KERNELS, per_call=len(K3_KERNELS))
+                row["launch_ms"] = cuda_ms(lambda: conv3x3_bn_stats(x, w))
+                row["plain_ms"] = cuda_ms(lambda: conv3x3_bn_stats_plain(x, w), iters=5, warmup=1)
+                row["library_ms"] = cuda_ms(library)
+            flops = 2 * 9 * B * H * W * Cin * Cout
+            nbytes = (x.numel() + w.numel() + y_k.numel()) * x.element_size() + 2 * Cout * 4
+            t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+            row.update(bound_ms=max(t_ops, t_bytes) * 1e3, bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       tflops=flops / row["ms"] / 1e9)
+            msg += (f"; kernel {row['ms']:.4f} ms device ({row['launch_ms']:.4f} ms with launch, "
+                    f"{row['tflops']:.1f} TFLOP/s), plain {row['plain_ms']:.3f} ms, cuDNN conv + var_mean "
+                    f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        rows[label] = row
+        print(msg, flush=True)
+    return rows
+
+
+def make_train_batch(rng, bs=8, imgsz=640, n_boxes=8, max_labels=32, nc=80):
+    """One seeded batch: uint8 frames, n_boxes labels an image padded to max_labels under a mask."""
+    imgs = rng.integers(0, 256, size=(bs, imgsz, imgsz, 3), dtype=np.uint8)
+    targets = np.zeros((bs, max_labels, 5), np.float32)
+    targets[:, :n_boxes, 0] = rng.integers(0, nc, size=(bs, n_boxes))
+    targets[:, :n_boxes, 1:3] = rng.uniform(0.1, 0.9, size=(bs, n_boxes, 2))
+    targets[:, :n_boxes, 3:5] = rng.uniform(0.04, 0.5, size=(bs, n_boxes, 2))
+    mask = np.zeros((bs, max_labels), bool)
+    mask[:, :n_boxes] = True
+    return imgs, targets, mask
+
+
+TRAIN_GROUPS = (  # kernel-name substrings -> group, first match wins
+    ("K3 conv3x3_bn_stats", K3_KERNELS),
+    ("conv backward (cuDNN dgrad/wgrad)", ("dgrad", "wgrad")),
+    ("other conv / GEMM (cuDNN, cuBLAS)", ("conv", "gemm", "xmma", "cutlass", "sm90", "cudnn", "nvjet")),
+    ("batch norm (cuDNN / native)", ("batch_norm", "bn_fw", "bn_bw", "batchnorm")),
+    ("optimizer + EMA + clip (multi-tensor)", ("multi_tensor",)),
+)
+STEP_RANGES = ("train_step/forward", "train_step/loss", "train_step/optimizer", "train_step/ema")
+
+
+def profile_train_step(step, batch, iters=2):
+    """Device time of a train step by kernel group (by kernel name) and by the
+    step's own phases (the record_function ranges of train/step.py; the
+    backward runs on autograd's thread and is the remainder)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step(*batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step(*batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # a record_function range shows on the device's timeline too (the span from
+    # its first kernel to its last): those and the optimizer's own range are no kernels
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+                   and e.name not in STEP_RANGES and not e.name.startswith("Optimizer."))
+    check(spans, "the profiler saw no device activity in the train step")
+    by_group, by_name, busy, edge, total = {}, {}, 0.0, -1.0, 0.0
+    for start, end, name in spans:
+        group = next((g for g, keys in TRAIN_GROUPS if any(k in name.lower() for k in keys)),
+                     "elementwise, loss and other")
+        by_group[group] = by_group.get(group, 0.0) + (end - start)
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+        total += end - start
+        busy += max(0.0, end - max(start, edge))
+        edge = max(edge, end)
+    groups = {g: t / iters / 1e3 for g, t in by_group.items()}
+    parts = ", ".join(f"{g} {t:.3f} ms" for g, t in sorted(groups.items(), key=lambda x: -x[1]))
+    print(f"train profile, per step: {parts}; {len(spans) // iters} kernels, device busy "
+          f"{busy / wall_us:.1%} of {wall_us / iters / 1e3:.3f} ms wall (profiler on)", flush=True)
+    # by phase: the host-side range events carry the kernels launched inside them
+    def launched(event):
+        return len(event.kernels) + sum(launched(child) for child in event.cpu_children)
+
+    ranges, counts, host_ms, seen = {}, {}, {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in STEP_RANGES:
+            key = e.name.split("/")[1]
+            ranges[key] = ranges.get(key, 0.0) + e.device_time_total / iters / 1e3
+            counts[key] = counts.get(key, 0) + launched(e) // iters
+            host_ms[key] = host_ms.get(key, 0.0) + e.cpu_time_total / iters / 1e3
+            seen += 1
+    if seen == len(STEP_RANGES) * iters and sum(ranges.values()) > 0:
+        ranges["backward"] = total / iters / 1e3 - sum(ranges.values())
+        counts["backward"] = len(spans) // iters - sum(counts.values())
+        print("train profile, kernel ms per step by phase (backward = launched outside the step's ranges): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ranges.items()), flush=True)
+        print("train profile, kernels per step by phase: " + ", ".join(f"{k} {v}" for k, v in counts.items())
+              + "; host ms inside the ranges (profiler on): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in host_ms.items()), flush=True)
+    else:
+        ranges, counts = {}, {}
+        print(f"train profile by phase: not measured ({seen} range events seen)", flush=True)
+    for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:14]:
+        print(f"train profile kernel {t / iters / 1e3:.3f} ms  {name[:110]}", flush=True)
+    return dict(groups_ms=groups, phases_ms=ranges, phase_kernels=counts, kernels=len(spans) // iters,
+                device_busy=busy / wall_us)
+
+
+def phase_train(rng, model, bs=8, imgsz=640, steps=10, convs_per_step=33):
+    """Drive the train path: 1 + `steps` steps on one seeded batch. Returns
+    (launches of the conv+statistics kernel over those steps, measurements)."""
+    from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats, conv3x3_bn_stats_plain
+    from yolov3_tpu_torch.train.loss import LossConfig
+    from yolov3_tpu_torch.train.optim import build_optimizer
+    from yolov3_tpu_torch.train.step import make_train_step
+
+    hyp = {"warmup_epochs": 0.0}  # every other hyper-parameter at its default
+    # batch_size = nbs = 64: no accumulation, so every step updates the parameters
+    optimizer, _, accumulate = build_optimizer("sgd", model, hyp, epochs=300, steps_per_epoch=1000,
+                                               batch_size=64, min_warmup_steps=0)
+    check(accumulate == 1, f"accumulate is {accumulate}")
+    loss_cfg = LossConfig.from_model(model.spec, hyp)
+    step = make_train_step(model, loss_cfg, optimizer)
+    state = step.state
+    batch = make_train_batch(rng, bs, imgsz, nc=model.spec.nc)
+    on_card = model.device.type == "cuda"
+    if on_card:
+        batch = tuple(torch.as_tensor(a, device=model.device) for a in batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    # --- the train path: every launch from here to the count read is the path's own
+    conv3x3_bn_stats.launches = 0
+    losses = [step(*batch)["loss"]]  # warm-up: cuDNN picks its algorithms, the allocator grows
+    if on_card:
+        torch.cuda.synchronize()
+        check(conv3x3_bn_stats.launches == convs_per_step,
+              f"first step launched the conv+statistics kernel {conv3x3_bn_stats.launches} times")
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(step(*batch)["loss"])
+    if on_card:
+        torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = conv3x3_bn_stats.launches
+    # --- end of the train path
+
+    losses = [float(v) for v in losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+    print(f"train path: {steps} steps of batch {bs} at {imgsz} px in {step_ms:.2f} ms/step = "
+          f"{bs / step_ms * 1e3:.1f} img/s; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"K3 launches {launches}; peak memory {peak_gb:.2f} GB", flush=True)
+    print("train losses: " + " ".join(f"{v:.4f}" for v in losses), flush=True)
+    check(all(np.isfinite(losses)), f"a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    check(state.step == steps + 1 and state.ema.updates == steps + 1 and optimizer.updates == steps + 1,
+          f"step counters: step {state.step}, ema {state.ema.updates}, optimizer {optimizer.updates}")
+    if on_card:
+        check(launches == convs_per_step * (steps + 1),
+              f"{launches} launches of the conv+statistics kernel in {steps + 1} steps, "
+              f"expected {convs_per_step} a step")
+    after = model.state_dict()
+
+    def moved(keys):
+        return sum(not torch.equal(before[k], after[k]) for k in keys), len(keys)
+
+    keys = {kind: [k for k in before if k.endswith(suffix)]
+            for kind, suffix in (("conv weights", "conv.weight"), ("bn weights", "bn.weight"),
+                                 ("bn running_mean", "running_mean"), ("bn running_var", "running_var"))}
+    for kind, ks in keys.items():
+        n_moved, n = moved(ks)
+        check(n_moved == n > 0, f"only {n_moved} of {n} {kind} changed")
+    ema_moved = sum(not torch.equal(before[k], v) for k, v in state.ema.ema.items() if v.is_floating_point())
+    check(ema_moved > 0 and all(bool(torch.isfinite(v).all()) for v in state.ema.ema.values()
+                                if v.is_floating_point()), "the EMA did not move or is not finite")
+    check(all(bool(torch.isfinite(v).all()) for v in after.values() if v.is_floating_point()),
+          "a parameter or BatchNorm statistic is not finite")
+    print(f"train state: every conv/bn weight and BatchNorm statistic moved, {ema_moved} EMA tensors moved, "
+          f"all finite; step {state.step}", flush=True)
+
+    out = dict(step_ms=step_ms, img_s=bs / step_ms * 1e3, peak_memory_gb=peak_gb, losses=losses)
+    if not on_card:
+        return launches, out
+
+    out["profile"] = profile_train_step(step, batch)
+
+    # one step through the kernel and one through its plain version, from the same state
+    saved = copy.deepcopy((model.state_dict(), optimizer.state_dict()))
+    results = {}
+    for label, fn in (("kernel", conv3x3_bn_stats), ("plain", conv3x3_bn_stats_plain)):
+        model.load_state_dict(saved[0])
+        optimizer.load_state_dict(copy.deepcopy(saved[1]))  # loading shares the tensors it is given
+        m = make_train_step(model, loss_cfg, optimizer, state=state, bn_stats_fn=fn)(*batch)
+        results[label] = (float(m["loss"]), float(m["grad_norm"]))
+    (loss_k, norm_k), (loss_p, norm_p) = results["kernel"], results["plain"]
+    print(f"train step, kernel vs plain conv+statistics from one state: loss {loss_k:.5f} vs {loss_p:.5f}, "
+          f"grad norm {norm_k:.4f} vs {norm_p:.4f}", flush=True)
+    check(abs(loss_k - loss_p) <= 5e-3 * abs(loss_p), f"losses differ: {loss_k} vs {loss_p} (rtol 5e-3)")
+    check(abs(norm_k - norm_p) <= 2e-2 * abs(norm_p), f"grad norms differ: {norm_k} vs {norm_p} (rtol 2e-2)")
+    out.update(kernel_vs_plain=dict(loss=(loss_k, loss_p), grad_norm=(norm_k, norm_p)))
+    return launches, out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run needs a CUDA card",
@@ -366,7 +653,10 @@ def main():
 
     model = DetectionModel.from_config("yolov3", seed=0)  # full width, nc=80, on the card
     check(model.num_params() == 61949149, f"yolov3 has {model.num_params()} parameters")
+    conv_rows = phase_conv_bn()
     launches, e2e = phase_main_path(rng, model)
+    del model  # its head carries the planted detections; the trainer starts from the seeded init
+    launches["conv3x3_bn_stats"], train = phase_train(rng, DetectionModel.from_config("yolov3", seed=0))
 
     serving = nms_rows["serving"]
     kernels = [
@@ -379,9 +669,13 @@ def main():
              replaces="yolov3_tpu/ops/score_pallas.py:43", launches=launches["masked_scores"],
              max_abs_err=score["max_abs_err"], ms=score["ms"], plain_ms=score["plain_ms"],
              bound_ms=score["bound_ms"], bound_by=score["bound_by"], library_ms=None),
+        dict(name="conv3x3_bn_stats", route="cuda", source="yolov3_tpu_torch/csrc/conv_bn.cu",
+             replaces="yolov3_tpu/ops/conv_bn_pallas.py:33", launches=launches["conv3x3_bn_stats"],
+             **{k: conv_rows[K3_MAIN_SHAPE][k]
+                for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
     ]
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"nms_shapes": nms_rows, "main_path": e2e}))
+    print(json.dumps({"nms_shapes": nms_rows, "conv_bn_shapes": conv_rows, "main_path": e2e, "train": train}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

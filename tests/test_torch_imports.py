@@ -1,5 +1,5 @@
-"""Import hygiene of the PyTorch port: it never imports JAX, flax or the JAX
-package, and its entry points refuse to drop to the CPU on their own."""
+"""Import hygiene of the PyTorch port: it never imports JAX, flax, optax or
+the JAX package, and its entry points refuse to drop to the CPU on their own."""
 
 import ast
 import subprocess
@@ -11,7 +11,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "yolov3_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "flax", "yolov3_tpu"}
+FORBIDDEN = {"jax", "flax", "optax", "yolov3_tpu"}
+TRAIN_MODULES = ("train/__init__.py", "train/loss.py", "train/optim.py", "train/step.py", "ops/conv_bn_cuda.py")
 
 
 def imported_roots(path):
@@ -30,11 +31,25 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-def test_serve_import_loads_no_jax():
-    code = ("import sys, yolov3_tpu_torch.serve, yolov3_tpu_torch.models.convert; "
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'yolov3_tpu')); "
+def test_walk_covers_the_train_modules():
+    walked = {str(p.relative_to(ROOT / "yolov3_tpu_torch")) for p in PORT_FILES[:-1]}
+    assert set(TRAIN_MODULES) <= walked
+
+
+def _assert_import_loads_no_jax(modules):
+    code = (f"import sys, {modules}; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'yolov3_tpu')); "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_serve_import_loads_no_jax():
+    _assert_import_loads_no_jax("yolov3_tpu_torch.serve, yolov3_tpu_torch.models.convert")
+
+
+def test_train_import_loads_no_jax():
+    _assert_import_loads_no_jax("yolov3_tpu_torch.train.step, yolov3_tpu_torch.train.optim, "
+                                "yolov3_tpu_torch.train.loss, yolov3_tpu_torch.ops.conv_bn_cuda")
 
 
 def test_device_none_raises_without_cuda(monkeypatch):
@@ -50,6 +65,7 @@ def test_device_none_raises_without_cuda(monkeypatch):
 
 
 def test_wrappers_reject_other_devices():
+    from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
     from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
     from yolov3_tpu_torch.ops.score_triton import masked_scores
 
@@ -58,3 +74,5 @@ def test_wrappers_reject_other_devices():
     z = torch.zeros(1, 4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         greedy_nms(torch.zeros(1, 4, 4, device="meta"), torch.zeros(1, 4, 4, device="meta"), z, z)
+    with pytest.raises(ValueError, match="unsupported device"):
+        conv3x3_bn_stats(torch.zeros(1, 4, 4, 3, device="meta"), torch.zeros(3, 3, 3, 8, device="meta"))

@@ -5,8 +5,10 @@ counterpart is found under the same name. The port keeps the JAX package's
 public layouts (NHWC uint8 images in, (B, max_det, 6) f32 detections and
 (B,) counts out) and runs its hand-written kernels on the card:
 
-    ops/nms_cuda.py + csrc/nms.cu   greedy NMS (CUDA C++, built with nvcc)
-    ops/score_triton.py             candidate-score pass (Triton)
+    ops/nms_cuda.py + csrc/nms.cu           greedy NMS (CUDA C++, built with nvcc)
+    ops/score_triton.py                     candidate-score pass (Triton)
+    ops/conv_bn_cuda.py + csrc/conv_bn.cu   3x3 conv + BatchNorm statistics of the
+                                            train-mode forward (CUDA C++)
 
 Entry points take `device=None`, meaning "cuda"; without a CUDA device they
 raise unless the caller passes `device="cpu"`, where every kernel wrapper
@@ -17,6 +19,10 @@ runs its plain PyTorch version.
     model = DetectionModel.from_config("yolov3", seed=0)
     batcher = MicroBatcher(build_batched_infer(model), max_batch=32)
     dets, n = batcher.submit(frame_640x640x3_uint8)
+
+Training (train/): `build_optimizer`, `LossConfig.from_model` and
+`make_train_step(model, loss_cfg, optimizer)` give a step function over
+uint8 image batches and padded labels.
 """
 
 __version__ = "0.1.0"

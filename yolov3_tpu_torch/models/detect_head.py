@@ -37,7 +37,9 @@ class Detect(nn.Module):
         self.m = nn.ModuleList(nn.Conv2d(c, na * self.no, 1) for c in ch)
 
     def forward(self, xs, raw=False):
-        """raw=False: (B, na, ny, nx, no) float32 per scale.
+        """raw=False: (B, na, ny, nx, no) per scale, float32 in eval mode; in
+        train mode the maps stay in the compute dtype, so the loss gathers
+        before it upcasts and the head's cotangents are in that dtype too.
         raw=True: (B, ny, nx, na*no) in the compute dtype (serving fast path)."""
         outs = []
         for conv, x in zip(self.m, xs):
@@ -46,7 +48,8 @@ class Detect(nn.Module):
                 outs.append(y.contiguous())
                 continue
             bs, ny, nx, _ = y.shape
-            outs.append(y.reshape(bs, ny, nx, self.na, self.no).permute(0, 3, 1, 2, 4).float())
+            y = y.reshape(bs, ny, nx, self.na, self.no).permute(0, 3, 1, 2, 4)
+            outs.append(y if self.training else y.float())
         return tuple(outs)
 
 

@@ -99,7 +99,9 @@ class DetectionModel(nn.Module):
     def forward(self, x, raw=False):
         """x: (B, H, W, C) NHWC images in [0, 1].
 
-        raw=False: tuple of per-scale (B, na, ny, nx, no) float32 maps.
+        raw=False: tuple of per-scale (B, na, ny, nx, no) maps, float32 in
+        eval mode and in the compute dtype in train mode (the loss upcasts
+        after its gather).
         raw=True: tuple of per-scale (B, ny, nx, na*no) maps in the model's
         dtype, the serving layout `decode_topk_nhwc` reads."""
         out = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
@@ -115,6 +117,14 @@ class DetectionModel(nn.Module):
                 saved[ls.i] = out
         detect = self.spec.layers[-1]
         return self.model[-1]([out if j == prev else saved[j] for j in detect.f], raw=raw)
+
+    def set_bn_stats_fn(self, fn):
+        """Route every train-mode conv+BN-statistics call (nn.modules.Conv)
+        through `fn`: the kernel wrapper `conv3x3_bn_stats` by default, its
+        plain version for a caller that compares the two."""
+        for m in self.modules():
+            if isinstance(m, Conv):
+                m.bn_stats_fn = fn
 
     def fuse(self):
         """A new model with every Conv+BN folded (reference fuse(), yolo.py:163-172),

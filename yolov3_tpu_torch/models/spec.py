@@ -61,6 +61,11 @@ class ModelSpec:
     def no(self):
         return self.nc + 5
 
+    def grid_anchors(self):
+        """Anchors in grid units, (nl, na, 2): pixel anchors over each scale's stride."""
+        return [[[a[2 * k] / s, a[2 * k + 1] / s] for k in range(self.na)]
+                for a, s in zip(self.anchors, self.strides)]
+
     def out_channels(self, j):
         """Channels of layer j's output (j = -1: the input image)."""
         return self.ch_in if j < 0 else self.layers[j].c2

@@ -16,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from yolov3_tpu_torch.nn.activations import get_activation
+from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
 
 BN_EPS = 1e-3  # the JAX package's BatchNorm epsilon
 BN_MOMENTUM = 0.03  # torch convention of flax's decay 0.97
@@ -34,19 +35,50 @@ class Conv(nn.Module):
     """Conv2d (no bias) + BatchNorm (eps 1e-3) + activation.
 
     `fused=True` is the inference form with the BN folded into the conv
-    (models/fuse.py): the conv carries a bias and there is no `bn`."""
+    (models/fuse.py): the conv carries a bias and there is no `bn`.
+
+    Routing in train mode: a stride-1, 3x3, groups=1, dilation=1 conv with a
+    `bn` goes through `conv3x3_bn_stats` (ops/conv_bn_cuda.py), which returns
+    the conv output with its batch mean and biased variance in one pass; this
+    module then normalises, and updates `bn`'s running statistics as
+    `nn.BatchNorm2d` would (Bessel-corrected variance, momentum 0.03). Every
+    other conv (1x1, stride 2, grouped, dilated) keeps `nn.BatchNorm2d`. Eval
+    mode and the fused form never take that route. `bn_stats_fn` is the
+    function called; a caller comparing the kernel with its plain version
+    sets it (DetectionModel.set_bn_stats_fn)."""
 
     def __init__(self, c1, c2, k=1, s=1, p=None, g=1, d=1, act=True, fused=False):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=fused)
         self.bn = None if fused else nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = get_activation(act)
+        self.stats_route = (not fused and k == 3 and s == 1 and g == 1 and d == 1
+                            and self.conv.padding == (1, 1))
+        self.bn_stats_fn = conv3x3_bn_stats
 
     def forward(self, x):
+        if self.stats_route and self.training:
+            return self.act(self._conv_bn_train(x))
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
         return self.act(x)
+
+    def _conv_bn_train(self, x):
+        bn = self.bn
+        x = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)  # NHWC view
+        y, mean, var = self.bn_stats_fn(x, self.conv.weight.permute(2, 3, 1, 0))
+        var = var.clamp(min=0.0)  # E[y^2] - mean^2 can round below 0
+        scale = bn.weight.float() * torch.rsqrt(var + bn.eps)
+        shift = bn.bias.float() - mean * scale
+        out = torch.addcmul(shift.to(y.dtype), y, scale.to(y.dtype))
+        with torch.no_grad():
+            n = y.numel() // y.shape[-1]
+            m = bn.momentum
+            bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            bn.running_var.mul_(1.0 - m).add_(var, alpha=m * n / max(n - 1, 1))
+            bn.num_batches_tracked += 1
+        return out.permute(0, 3, 1, 2)  # NCHW view in channels_last
 
 
 class Bottleneck(nn.Module):
