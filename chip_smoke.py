@@ -5,13 +5,17 @@
 
 Phases, each printing its result on its own line:
   1. build every CUDA source of yolov3_tpu_torch/csrc/ with nvcc (sm_90a);
-  2. the greedy-NMS kernel against its plain version at the serving,
-     fallback and val-grade shapes: outputs equal;
+  2. the greedy-NMS kernels against the plain version at the serving,
+     fallback and val-grade shapes (one per kernel): outputs equal; the time
+     of one step's dependent chain, from a run at one candidate a lane;
   3. the candidate-score kernel against its plain version on bf16 head
      outputs of yolov3@640 at batch 32;
-  4. the conv3x3 + BatchNorm-statistics kernel against its plain version at
-     yolov3@640's train shapes (batch 8, bf16) and at small f32 and odd
-     shapes, with its time beside cuDNN's conv + var_mean;
+  4. the conv3x3 + BatchNorm-statistics kernels against the plain version at
+     every stride-1 3x3 conv shape of yolov3, yolov3-spp and yolov3-tiny at
+     640 px and at small f32 and odd shapes; each row names the kernel it
+     took and is run twice for equal bits; yolov3's shapes (batch 8, bf16)
+     are timed beside two library yardsticks, cuDNN's conv + var_mean over an
+     f32 copy of y and over the bf16 y, by kernel time and by CUDA events;
   5. the serving path: full-width yolov3 (seeded random weights, detections
      planted on the head bias), 64 concurrent 640x640 requests through
      MicroBatcher(max_batch=32), one dense batch that takes the overflow
@@ -24,6 +28,10 @@ Phases, each printing its result on its own line:
      statistics and EMA, 33 launches of the conv+statistics kernel a step,
      one step with the kernel against one with its plain version from the
      same state, a profile of a step by kernel group.
+With `--kernel-times [ROOT]` it only times K3 and K1 of the package under
+ROOT (default: beside this file) at the main paths' shapes and stops: run
+once per tree, parent, change, change, parent, to compare two trees on one card.
+
 Then a JSON line of per-kernel numbers ({"kernels": [...]}), a JSON line of
 the other measurements, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Any failure raises: exit code != 0.
@@ -98,6 +106,42 @@ def device_ms(fn, kernel, iters=20, per_call=1):
     return sum(spans) / len(spans) * per_call / 1e3
 
 
+def ranges_device_ms(segments, iters=20):
+    """Device time per call of each (label, fn) of `segments`, all in one
+    profiler window: the summed time of the kernels launched inside a
+    record_function range around `iters` calls of fn, whatever their names.
+    The profiler now and then loses events, so a window in which a range's
+    kernel count is no multiple of `iters` is taken again, three times at most."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def launched(event):
+        return len(event.kernels) + sum(launched(child) for child in event.cpu_children)
+
+    for _, fn in segments:
+        fn()
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for label, fn in segments:
+                fn()  # an unmeasured call: the first event of a window is the one most often lost
+                torch.cuda.synchronize()
+                with record_function(f"ranges_device_ms/{label}"):
+                    for _ in range(iters):
+                        fn()
+                torch.cuda.synchronize()
+        out, whole = {}, True
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("ranges_device_ms/"):
+                n = launched(e)
+                whole = whole and n > 0 and n % iters == 0
+                out[e.name.split("/", 1)[1]] = e.device_time_total / iters / 1e3
+        if whole and len(out) == len(segments):
+            return out
+    check(len(out) == len(segments), f"the profiler kept {sorted(out)} of {[l for l, _ in segments]}")
+    print("ranges_device_ms: kernel events were lost in three windows; the last window's sums are used", flush=True)
+    return out
+
+
 def make_candidates(rng, B, K, device, nc=80):
     """Random prefiltered candidates: score-sorted, a quarter of the slots invalid."""
     xy = rng.uniform(0, 640, size=(B, K, 2)).astype(np.float32)
@@ -114,11 +158,36 @@ def make_candidates(rng, B, K, device, nc=80):
 
 
 NMS_SHAPES = (("serving", 32, 448, 0.45), ("fallback", 4, 8192, 0.45), ("val", 2, 30000, 0.6))
+NMS_KERNEL = "greedy_nms"  # in the name of each of csrc/nms.cu's kernels
+
+
+def nms_step_chain_ms(device="cuda", B=32):
+    """Least time of one NMS step: its dependent chain (warp argmax, broadcast
+    of the selected box, one IoU test, compare) with nothing else to do.
+    Measured with the warp kernel at one candidate a lane (K = 32, boxes that
+    never overlap, so n steps for n valid scores): the difference between a
+    run of 32 steps and a run of 16, over 16."""
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
+
+    x1 = torch.arange(32, device=device, dtype=torch.float32).repeat(B, 1) * 100.0
+    boxes = torch.stack([x1, torch.zeros_like(x1), x1 + 50.0, torch.full_like(x1, 50.0)], -1)
+    cls = torch.zeros((B, 32), device=device)
+    ms = {}
+    for n_valid in (32, 16):
+        scores = torch.linspace(0.9, 0.3, 32, device=device).repeat(B, 1)
+        scores[:, n_valid:] = -1.0
+        _, n = greedy_nms(boxes, boxes, scores, cls, 0.45, 300)
+        check(bool((n == n_valid).all()), f"the chain run took {n.tolist()} steps, expected {n_valid}")
+        ms[n_valid] = device_ms(lambda: greedy_nms(boxes, boxes, scores, cls, 0.45, 300), NMS_KERNEL)
+    return (ms[32] - ms[16]) / 16
 
 
 def phase_nms(rng, shapes=NMS_SHAPES, device="cuda"):
     from yolov3_tpu_torch.ops.nms_cuda import greedy_nms, greedy_nms_plain
 
+    chain_ms = nms_step_chain_ms(device)
+    print(f"K1 greedy_nms step chain (argmax, broadcast, one IoU, compare; measured at one candidate "
+          f"a lane): {chain_ms * 1e3:.3f} us", flush=True)
     rows = {}
     for label, B, K, iou in shapes:
         args = make_candidates(rng, B, K, device)
@@ -128,19 +197,23 @@ def phase_nms(rng, shapes=NMS_SHAPES, device="cuda"):
         check(torch.equal(n_k, n_p), f"greedy_nms {label}: n differs from the plain version")
         err = float((out_k - out_p).abs().max())
         check(torch.equal(out_k, out_p), f"greedy_nms {label}: rows differ (max abs err {err})")
-        ms = device_ms(lambda: greedy_nms(*args, iou, 300), "greedy_nms_kernel")
+        route = greedy_nms.last_route
+        ms = device_ms(lambda: greedy_nms(*args, iou, 300), NMS_KERNEL)
         launch_ms = cuda_ms(lambda: greedy_nms(*args, iou, 300))
         plain_ms = cuda_ms(lambda: greedy_nms_plain(*args, iou, 300), iters=3, warmup=1)
         nbytes = B * K * 40 + B * 300 * 24 + B * 4
         ops = int(n_k.sum()) * K * NMS_OPS_PER_IOU
         bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
         bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
+        # the steps of one image are sequential: the longest image times one step's chain
+        latency_bound_ms = int(n_k.max()) * chain_ms
         rows[label] = dict(B=B, K=K, max_det=300, n_mean=float(n_k.float().mean()), max_abs_err=err,
-                           ms=ms, launch_ms=launch_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
-        print(f"K1 greedy_nms {label}: B={B} K={K} equal to plain, n_mean={rows[label]['n_mean']:.1f} "
+                           route=route, ms=ms, launch_ms=launch_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, latency_bound_ms=latency_bound_ms)
+        print(f"K1 greedy_nms {label}: B={B} K={K} [{route}] equal to plain, n_mean={rows[label]['n_mean']:.1f} "
               f"kernel {ms:.4f} ms device ({launch_ms:.4f} ms with launch), plain {plain_ms:.3f} ms, "
-              f"bound {bound_ms:.5f} ms ({bound_by}), "
+              f"bound {bound_ms:.5f} ms ({bound_by}), latency bound {latency_bound_ms:.4f} ms "
+              f"({int(n_k.max())} steps x the chain), "
               f"{ms / rows[label]['n_mean'] * 1e3 if rows[label]['n_mean'] else float('nan'):.2f} us/step",
               flush=True)
     return rows
@@ -363,15 +436,30 @@ def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32):
 
 
 K3_KERNELS = ("conv3x3_stats", "bn_stats_finalize")  # the conv kernel and its fixed-order stats reduction
-# (label, dtype, B, H, W, Cin, Cout): yolov3@640's stride-1 3x3 convs at batch 8 (one per scale, and
-# the stem), then small f32 shapes and odd ones that take the kernels' narrow-tile, element-wise
-# load and element-wise store paths
+# (label, dtype, B, H, W, Cin, Cout). First yolov3@640's stride-1 3x3 convs at batch 8, one per map
+# size and the stem (yolov3-spp's are the same six): these are timed. Then, for correctness only, the
+# shapes yolov3-tiny adds, at batch 2; odd shapes that reach every path of the kernels (each swizzle
+# width of the wgmma kernel, a ragged last pixel tile, a Cout that is no multiple of the channel
+# tile or of 8, a ragged stem row, the element-load kernel); and small f32 shapes.
 K3_SHAPES = (
+    ("320x320 32->64", torch.bfloat16, 8, 320, 320, 32, 64),
     ("160x160 64->128", torch.bfloat16, 8, 160, 160, 64, 128),
     ("80x80 128->256", torch.bfloat16, 8, 80, 80, 128, 256),
     ("40x40 256->512", torch.bfloat16, 8, 40, 40, 256, 512),
     ("20x20 512->1024", torch.bfloat16, 8, 20, 20, 512, 1024),
     ("stem 640x640 3->32", torch.bfloat16, 8, 640, 640, 3, 32),
+    ("tiny stem 640x640 3->16", torch.bfloat16, 2, 640, 640, 3, 16),
+    ("tiny 320x320 16->32", torch.bfloat16, 2, 320, 320, 16, 32),
+    ("tiny 160x160 32->64", torch.bfloat16, 2, 160, 160, 32, 64),
+    ("tiny 80x80 64->128", torch.bfloat16, 2, 80, 80, 64, 128),
+    ("tiny 40x40 128->256", torch.bfloat16, 2, 40, 40, 128, 256),
+    ("tiny 40x40 384->256", torch.bfloat16, 2, 40, 40, 384, 256),
+    ("tiny 20x20 256->512", torch.bfloat16, 2, 20, 20, 256, 512),
+    ("tiny 20x20 512->1024", torch.bfloat16, 2, 20, 20, 512, 1024),
+    ("odd 13x19 64->40", torch.bfloat16, 8, 13, 19, 64, 40),
+    ("odd 13x19 96->72", torch.bfloat16, 8, 13, 19, 96, 72),
+    ("odd 13x19 48->100", torch.bfloat16, 8, 13, 19, 48, 100),
+    ("odd stem 37x150 3->32", torch.bfloat16, 3, 37, 150, 3, 32),
     ("odd 13x19 8->12", torch.bfloat16, 8, 13, 19, 8, 12),
     ("odd 13x19 24->100", torch.bfloat16, 8, 13, 19, 24, 100),
     ("odd 13x19 5->7", torch.bfloat16, 8, 13, 19, 5, 7),
@@ -379,6 +467,8 @@ K3_SHAPES = (
     ("f32 8x24 4->8", torch.float32, 8, 8, 24, 4, 8),
     ("f32 odd 13x19 5->7", torch.float32, 8, 13, 19, 5, 7),
 )
+# yolov3's rows, the ones that are timed
+K3_TIMED = tuple(row for row in K3_SHAPES if row[1] == torch.bfloat16 and row[2] == 8 and not row[0].startswith("odd"))
 K3_MAIN_SHAPE = "80x80 128->256"  # the row of the {"kernels": ...} line
 # y: one bf16 ulp of the plain version's rounding / f32 sums in another order
 K3_LIMITS = {torch.bfloat16: dict(y_rtol=8e-3, y_atol=1e-2, mean_atol=1e-3, var_rtol=1e-2),
@@ -386,9 +476,12 @@ K3_LIMITS = {torch.bfloat16: dict(y_rtol=8e-3, y_atol=1e-2, mean_atol=1e-3, var_
 
 
 def phase_conv_bn(shapes=K3_SHAPES, device="cuda", timed=True):
-    """The conv3x3 + BN-statistics kernel against its plain version on seeded
-    inputs (y ~ N(0, 1) per channel), and, for the bf16 model shapes, its time
-    beside the plain version and cuDNN's conv + var_mean."""
+    """The conv3x3 + BN-statistics kernels against the plain version on seeded
+    inputs (y ~ N(0, 1) per channel), twice for equal bits, and, for yolov3's
+    shapes (bf16, batch 8), the time beside the plain version and two library
+    yardsticks: cuDNN's conv + var_mean over an f32 copy of y, and over the
+    bf16 y itself (no copy). Kernel and yardsticks are taken by summed kernel
+    time in one profiler window and by CUDA events (launch gaps included)."""
     import torch.nn.functional as F
 
     from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats, conv3x3_bn_stats_plain
@@ -400,9 +493,16 @@ def phase_conv_bn(shapes=K3_SHAPES, device="cuda", timed=True):
         w = (torch.randn((3, 3, Cin, Cout), generator=gen, device=device) / (9 * Cin) ** 0.5).to(dtype)
         with torch.no_grad():
             y_k, mean_k, var_k = conv3x3_bn_stats(x, w)
+            route = conv3x3_bn_stats.last_route
+            again = conv3x3_bn_stats(x, w)
             y_p, mean_p, var_p = conv3x3_bn_stats_plain(x, w)
         if device == "cuda":
             torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip((y_k, mean_k, var_k), again)),
+                  f"conv3x3_bn_stats {label}: two runs on the same inputs differ in their bits")
+            if dtype == torch.bfloat16 and Cin % 16 == 0:
+                check(route.startswith("bf16 wgmma"), f"conv3x3_bn_stats {label} took the kernel {route!r}")
+        del again
         lim = K3_LIMITS[dtype]
         check(y_k.shape == (B, H, W, Cout) and y_k.dtype == dtype and mean_k.shape == var_k.shape == (Cout,),
               f"conv3x3_bn_stats {label}: wrong output shapes or types")
@@ -410,35 +510,51 @@ def phase_conv_bn(shapes=K3_SHAPES, device="cuda", timed=True):
         y_bad = int((y_err > lim["y_atol"] + lim["y_rtol"] * y_p.float().abs()).sum())
         mean_err = float((mean_k - mean_p).abs().max())
         var_err = float(((var_k - var_p).abs() / var_p.abs()).max())
-        row = dict(dtype=str(dtype).split(".")[-1], B=B, H=H, W=W, Cin=Cin, Cout=Cout,
+        row = dict(dtype=str(dtype).split(".")[-1], B=B, H=H, W=W, Cin=Cin, Cout=Cout, route=route,
                    max_abs_err=float(y_err.max()), mean_abs_err=mean_err, var_rel_err=var_err)
         check(y_bad == 0, f"conv3x3_bn_stats {label}: {y_bad} elements of y beyond rtol {lim['y_rtol']} "
                           f"atol {lim['y_atol']} (max abs err {row['max_abs_err']})")
         check(mean_err <= lim["mean_atol"], f"conv3x3_bn_stats {label}: mean err {mean_err} > {lim['mean_atol']}")
         check(var_err <= lim["var_rtol"], f"conv3x3_bn_stats {label}: var rel err {var_err} > {lim['var_rtol']}")
-        msg = (f"K3 conv3x3_bn_stats {label} {row['dtype']} B={B}: y max abs err {row['max_abs_err']:.3g}, "
+        msg = (f"K3 conv3x3_bn_stats {label} {row['dtype']} B={B} [{route}]: two runs equal, y max abs err {row['max_abs_err']:.3g}, "
                f"mean err {mean_err:.3g}, var rel err {var_err:.3g}")
-        if timed and dtype == torch.bfloat16 and not label.startswith("odd"):
+        if timed and (label, dtype, B, H, W, Cin, Cout) in K3_TIMED:
             x_nchw = x.permute(0, 3, 1, 2)  # channels_last view
             w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            w_view = w_oihw.permute(2, 3, 1, 0)  # as nn.modules.Conv hands its parameter over: no copy
 
-            def library():
+            def kernel():
+                return conv3x3_bn_stats(x, w_view)
+
+            def library_f32():  # the statistics over an f32 copy of y, as the plain version takes them
                 y = F.conv2d(x_nchw, w_oihw, padding=1)
                 return torch.var_mean(y.float(), dim=(0, 2, 3), correction=0)
 
+            def library_bf16():  # the tighter yardstick: no f32 copy of y is written or read
+                y = F.conv2d(x_nchw, w_oihw, padding=1)
+                return torch.var_mean(y, dim=(0, 2, 3), correction=0)
+
             with torch.no_grad():
-                row["ms"] = device_ms(lambda: conv3x3_bn_stats(x, w), K3_KERNELS, per_call=len(K3_KERNELS))
-                row["launch_ms"] = cuda_ms(lambda: conv3x3_bn_stats(x, w))
+                window = ranges_device_ms((("kernel", kernel), ("library_f32", library_f32),
+                                           ("library_bf16", library_bf16)))
+                row["launch_ms"] = cuda_ms(kernel)
                 row["plain_ms"] = cuda_ms(lambda: conv3x3_bn_stats_plain(x, w), iters=5, warmup=1)
-                row["library_ms"] = cuda_ms(library)
+                row["library_f32_event_ms"] = cuda_ms(library_f32)
+                row["library_bf16_event_ms"] = cuda_ms(library_bf16)
+            row.update(ms=window["kernel"], library_f32_ms=window["library_f32"],
+                       library_bf16_ms=window["library_bf16"],
+                       library_ms=min(window["library_f32"], window["library_bf16"]))
             flops = 2 * 9 * B * H * W * Cin * Cout
             nbytes = (x.numel() + w.numel() + y_k.numel()) * x.element_size() + 2 * Cout * 4
             t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
             row.update(bound_ms=max(t_ops, t_bytes) * 1e3, bound_by="operations" if t_ops >= t_bytes else "bytes",
                        tflops=flops / row["ms"] / 1e9)
-            msg += (f"; kernel {row['ms']:.4f} ms device ({row['launch_ms']:.4f} ms with launch, "
-                    f"{row['tflops']:.1f} TFLOP/s), plain {row['plain_ms']:.3f} ms, cuDNN conv + var_mean "
-                    f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+            msg += (f"; kernel {row['ms']:.4f} ms device ({row['launch_ms']:.4f} ms by events, "
+                    f"{row['tflops']:.1f} TFLOP/s), plain "
+                    f"{row['plain_ms']:.3f} ms; cuDNN conv + var_mean of an f32 copy {row['library_f32_ms']:.4f} ms "
+                    f"device ({row['library_f32_event_ms']:.4f} by events), of the bf16 y "
+                    f"{row['library_bf16_ms']:.4f} ms device ({row['library_bf16_event_ms']:.4f} by events); "
+                    f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
         rows[label] = row
         print(msg, flush=True)
     return rows
@@ -624,11 +740,40 @@ def phase_train(rng, model, bs=8, imgsz=640, steps=10, convs_per_step=33):
     return launches, out
 
 
-def main():
+def phase_kernel_times(rng, tag):
+    """K3 at yolov3's six shapes (batch 8, bf16, the weight as nn.modules.Conv
+    hands it over) and K1 at NMS_SHAPES: device ms by kernel name and ms by
+    CUDA events, each on its own line after `tag`. The first K3 shape has next
+    to no device work: its time by events is the host's cost of one call."""
+    from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for H, W, Cin, Cout in [(16, 16, 64, 64), *(row[3:] for row in K3_TIMED)]:
+        x = torch.randn((8, H, W, Cin), generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((Cout, Cin, 3, 3), generator=gen, device="cuda") / (9 * Cin) ** 0.5).to(torch.bfloat16)
+        w_view = w.contiguous(memory_format=torch.channels_last).permute(2, 3, 1, 0)
+        with torch.no_grad():
+            dev = device_ms(lambda: conv3x3_bn_stats(x, w_view), K3_KERNELS, per_call=len(K3_KERNELS))
+            ev = cuda_ms(lambda: conv3x3_bn_stats(x, w_view), iters=50)
+        print(f"{tag} K3 {H}x{W} {Cin}->{Cout}: device {dev:.4f} ms, events {ev:.4f} ms", flush=True)
+    for label, B, K, iou in NMS_SHAPES:
+        args = make_candidates(rng, B, K, "cuda")
+        dev = device_ms(lambda: greedy_nms(*args, iou, 300), NMS_KERNEL)
+        ev = cuda_ms(lambda: greedy_nms(*args, iou, 300), iters=50)
+        print(f"{tag} K1 {label}: device {dev:.4f} ms, events {ev:.4f} ms", flush=True)
+
+
+def main(argv=()):
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run needs a CUDA card",
               file=sys.stderr)
         return 1
+    if argv and argv[0] == "--kernel-times":
+        if len(argv) > 1:
+            sys.path.insert(0, argv[1])  # the package of another tree, ahead of the one beside this file
+        phase_kernel_times(np.random.default_rng(0), argv[1] if len(argv) > 1 else ".")
+        return 0
     from yolov3_tpu_torch.ops import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -664,7 +809,7 @@ def main():
              replaces="yolov3_tpu/ops/nms_pallas.py:29", launches=launches["greedy_nms"],
              max_abs_err=max(r["max_abs_err"] for r in nms_rows.values()), ms=serving["ms"],
              plain_ms=serving["plain_ms"], bound_ms=serving["bound_ms"], bound_by=serving["bound_by"],
-             library_ms=None),
+             library_ms=None, latency_bound_ms=serving["latency_bound_ms"]),
         dict(name="masked_scores", route="triton", source="yolov3_tpu_torch/ops/score_triton.py",
              replaces="yolov3_tpu/ops/score_pallas.py:43", launches=launches["masked_scores"],
              max_abs_err=score["max_abs_err"], ms=score["ms"], plain_ms=score["plain_ms"],
@@ -683,4 +828,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -66,14 +66,17 @@ def _forward(x, w):
     y = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
     partial = torch.empty((rows, 2, Cout), dtype=torch.float32, device=x.device)
     stats = torch.empty((2, Cout), dtype=torch.float32, device=x.device)
+    route = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         err = lib.conv3x3_bn_stats_launch(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), partial.data_ptr(), stats[0].data_ptr(),
             stats[1].data_ptr(), B, H, W, Cin, Cout, is_bf16,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            torch.cuda.current_stream(x.device).cuda_stream, ctypes.byref(route))
     if err:
-        raise RuntimeError(f"conv3x3_bn_stats kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"conv3x3_bn_stats kernel launch failed: cudaError {err} "
+                           f"(20000 + a CUresult: a tensor map was refused), route {route_name(route.value)}")
     conv3x3_bn_stats.launches += 1
+    conv3x3_bn_stats.last_route = route_name(route.value)
     return y, stats[0], stats[1]
 
 
@@ -118,7 +121,8 @@ def conv3x3_bn_stats(x, w):
     normalising caller clamps it.
 
     Differentiable in x and w. A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel (bfloat16 or float32) or raises.
+    tensor launches the kernel (bfloat16 or float32) or raises;
+    `conv3x3_bn_stats.last_route` then names the kernel it took.
     """
     if w.dim() != 4 or x.dim() != 4 or tuple(w.shape[:3]) != (3, 3, x.shape[3]):
         raise ValueError(f"conv3x3_bn_stats: x {tuple(x.shape)} / w {tuple(w.shape)} are not "
@@ -127,13 +131,26 @@ def conv3x3_bn_stats(x, w):
 
 
 conv3x3_bn_stats.launches = 0
+conv3x3_bn_stats.last_route = None  # name of the kernel the last launch took
+
+# kernel ids of csrc/conv_bn.cu (the low byte of what the launch function reports)
+ROUTES = {0: "f32 fma", 1: "bf16 element-load wmma", 2: "bf16 stem mma.sync", 3: "bf16 wgmma"}
+
+
+def route_name(route: int) -> str:
+    """Name of a kernel id of csrc/conv_bn.cu; the wgmma kernel's carries its
+    input channels a step (the swizzle width) and its channel tile."""
+    name = ROUTES.get(route & 0xFF, f"unknown {route}")
+    if route & 0xFF == 3:
+        name += f" bk{(route >> 8) & 0xFF} tn{(route >> 16) & 0xFFFF}"
+    return name
 
 
 def _library():
     lib = cuda_build.load("conv_bn")
     fn = lib.conv3x3_bn_stats_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         lib.conv3x3_bn_stats_partial_rows.argtypes = [ctypes.c_int] * 4
         lib.conv3x3_bn_stats_partial_rows.restype = ctypes.c_int

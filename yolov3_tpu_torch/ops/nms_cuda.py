@@ -43,12 +43,10 @@ def greedy_nms_plain(boxes_off, boxes, scores, cls_ids, iou_thres=0.45, max_det=
     return out, (out[..., 4] > 0).sum(1).to(torch.int32)
 
 
-def _threads(K: int) -> int:
-    """Block size: about four candidates a thread, 32 to 1024 threads."""
-    t = 32
-    while t < 1024 and 4 * t < K:
-        t *= 2
-    return t
+# greedy_nms_route(K) of csrc/nms.cu: which kernel a launch at K candidates takes
+ROUTES = {1: "one or four warps per image, candidates in registers",
+          2: "block per image, candidates in shared memory",
+          3: "block per image, candidates in global memory"}
 
 
 def greedy_nms(boxes_off, boxes, scores, cls_ids, iou_thres=0.45, max_det=300):
@@ -59,7 +57,8 @@ def greedy_nms(boxes_off, boxes, scores, cls_ids, iou_thres=0.45, max_det=300):
     slots <= 0; cls_ids: (B, K) class ids as floats.
     Returns out (B, max_det, 6) f32 rows [x1, y1, x2, y2, conf, cls] in
     descending score order, zero past the last detection, and n (B,) int32.
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    (one of `ROUTES`, chosen from K; `greedy_nms.last_route` names it).
     """
     if scores.device.type == "cpu":
         return greedy_nms_plain(boxes_off, boxes, scores, cls_ids, iou_thres, max_det)
@@ -76,27 +75,34 @@ def greedy_nms(boxes_off, boxes, scores, cls_ids, iou_thres=0.45, max_det=300):
     n = torch.empty((B,), dtype=torch.int32, device=device)
     if B == 0:
         return out, n
-    live = torch.empty((B, K), dtype=torch.float32, device=device)
+    if max_det < 1:
+        raise ValueError(f"greedy_nms: max_det is {max_det}")
     lib = _library()
+    route = lib.greedy_nms_route(K)
+    # only the global-memory kernel keeps its live scores in a scratch buffer
+    live = torch.empty((B, K), dtype=torch.float32, device=device) if route == 3 else None
     with torch.cuda.device(device):
         err = lib.greedy_nms_launch(
             boxes_off.data_ptr(), boxes.data_ptr(), scores.data_ptr(), cls_ids.data_ptr(),
-            live.data_ptr(), out.data_ptr(), n.data_ptr(), B, K, int(max_det), float(iou_thres),
-            _threads(K), torch.cuda.current_stream(device).cuda_stream)
+            None if live is None else live.data_ptr(), out.data_ptr(), n.data_ptr(), B, K, int(max_det),
+            float(iou_thres), torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"greedy_nms kernel launch failed: cudaError {err}")
     greedy_nms.launches += 1
+    greedy_nms.last_route = ROUTES[route]
     return out, n
 
 
 greedy_nms.launches = 0
+greedy_nms.last_route = None
 
 
 def _library():
     lib = cuda_build.load("nms")
     fn = lib.greedy_nms_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
-                                                                   ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.greedy_nms_route.argtypes = [ctypes.c_int]
+        lib.greedy_nms_route.restype = ctypes.c_int
     return lib
