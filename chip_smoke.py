@@ -4,12 +4,14 @@
     python3 chip_smoke.py
 
 Phases, each printing its result on its own line:
-  1. build every CUDA source of yolov3_tpu_torch/csrc/ with nvcc (sm_90a);
+  1. build every CUDA source of yolov3_tpu_torch/csrc/ with nvcc (sm_90a),
+     one nvcc process each, all started together;
   2. the greedy-NMS kernels against the plain version at the serving,
      fallback and val-grade shapes (one per kernel): outputs equal; the time
      of one step's dependent chain, from a run at one candidate a lane;
   3. the candidate-score kernel against its plain version on bf16 head
-     outputs of yolov3@640 at batch 32;
+     outputs of yolov3@640 at batch 32 and at ragged, f16, f32 and unaligned
+     shapes; its time per scale and for the three scales beside the bound;
   4. the conv3x3 + BatchNorm-statistics kernels against the plain version at
      every stride-1 3x3 conv shape of yolov3, yolov3-spp and yolov3-tiny at
      640 px and at small f32 and odd shapes; each row names the kernel it
@@ -22,15 +24,22 @@ Phases, each printing its result on its own line:
      fallback, launch counts of both kernels over that run, a profile of
      the served batch by kernel group, and the fast path's detections
      against the plain score and NMS functions;
-  6. the train path: the same model in train mode, SGD with the default
+  6. the val path on the same model: eval.validator.run at the val-grade
+     defaults (conf 0.001, iou 0.6, multi-label, max_det 300, max_nms 30000)
+     over 32 640x640 frames and 8 512x640 rect frames, labelled with the f32
+     val path's own detections above conf 0.25; f32 mAP50 >= 0.95, half=True
+     beside it, one greedy-NMS launch a batch at K = 30000, detections and
+     metrics equal to those through the plain NMS, a profile of one batch;
+  7. the train path: the same model in train mode, SGD with the default
      hyper-parameters, 1 + 10 steps on one seeded batch of 8 640x640 images
      with 8 boxes each; finite falling loss, moved parameters, BatchNorm
      statistics and EMA, 33 launches of the conv+statistics kernel a step,
      one step with the kernel against one with its plain version from the
      same state, a profile of a step by kernel group.
-With `--kernel-times [ROOT]` it only times K3 and K1 of the package under
+With `--kernel-times [ROOT]` it only times K3, K1 and K2 of the package under
 ROOT (default: beside this file) at the main paths' shapes and stops: run
-once per tree, parent, change, change, parent, to compare two trees on one card.
+once per tree, parent, change, change, parent, to compare two trees on one
+card (a tree from before csrc/score.cu times its Triton K2).
 
 Then a JSON line of per-kernel numbers ({"kernels": [...]}), a JSON line of
 the other measurements, the card's name and power limit, and, last,
@@ -219,50 +228,103 @@ def phase_nms(rng, shapes=NMS_SHAPES, device="cuda"):
     return rows
 
 
-def phase_score(rng, bs=32, cells=(6400, 1600, 400), conf=0.25, device="cuda"):
-    """cells: yolov3@640's 80x80, 40x40 and 20x20 grids."""
-    from yolov3_tpu_torch.ops.score_triton import masked_scores, masked_scores_plain
+SCORE_CELLS = (6400, 1600, 400)  # yolov3@640's 80x80, 40x40 and 20x20 grids
+# (label, B, M, dtype, storage offset in elements): ragged cell counts, f16 and f32 rows, views whose
+# data start off a 16-byte line (every tile then has a head and a tail of 2-byte loads), one cell
+SCORE_EXTRA = (("ragged bf16", 3, 401, torch.bfloat16, 0), ("ragged f16", 3, 401, torch.float16, 0),
+               ("ragged f32", 3, 401, torch.float32, 0), ("unaligned bf16 view", 3, 401, torch.bfloat16, 1),
+               ("unaligned f32 view", 2, 7, torch.float32, 1), ("one cell", 1, 1, torch.bfloat16, 3))
+SCORE_KERNEL = "score_kernel"  # in the name of csrc/score.cu's kernel
+
+
+def score_module():
+    """The tree's K2 wrapper: ops.score_cuda, or ops.score_triton in a tree from before it."""
+    try:
+        from yolov3_tpu_torch.ops import score_cuda as module
+    except ImportError:
+        from yolov3_tpu_torch.ops import score_triton as module
+    return module
+
+
+def make_heads(rng, shapes, na=3, no=85, device="cuda"):
+    """Seeded head outputs (B, M, na*no) in `dtype`, starting `offset` elements into their storage."""
+    heads = []
+    for B, M, dtype, offset in shapes:
+        x = rng.normal(-3.0, 2.0, size=(B * M * na * no + offset,)).astype(np.float32)
+        heads.append(torch.from_numpy(x).to(device, dtype)[offset:].view(B, M, na * no))
+    return heads
+
+
+def check_scores(f, na, no, conf, label):
+    """K2 against its plain version on one head: class args equal, scores within
+    1e-6, valid masks equal away from the threshold. Returns the max score error."""
+    from yolov3_tpu_torch.ops.score_cuda import masked_scores, masked_scores_plain
+
+    s_k, a_k = masked_scores(f, na, no, conf)
+    s_p, a_p = masked_scores_plain(f, na, no, conf)
+    torch.cuda.synchronize()
+    check(torch.equal(a_k, a_p), f"masked_scores {label}: class args differ")
+    both = (s_k >= 0) & (s_p >= 0)
+    e = float((s_k - s_p)[both].abs().max()) if bool(both.any()) else 0.0
+    check(e <= 1e-6, f"masked_scores {label}: scores differ by {e} > 1e-6")
+    v = f.reshape(f.shape[0], -1, no).float()
+    obj = torch.sigmoid(v[..., 4])
+    score = obj * torch.sigmoid(v[..., 5:].amax(-1))
+    # within 1e-6 of the threshold either side may round across it
+    near = ((score - conf).abs() <= 1e-6) | ((obj - conf).abs() <= 1e-6)
+    flips = ((s_k >= 0) != (s_p >= 0)) & ~near
+    check(not bool(flips.any()), f"masked_scores {label}: valid masks differ")
+    check(bool(((s_k == -1.0) | (s_k > conf)).all()), f"masked_scores {label}: a score is neither -1 nor > conf")
+    print(f"K2 masked_scores {label} {tuple(f.shape)} {str(f.dtype).split('.')[-1]} "
+          f"[{masked_scores.last_route}]: args equal, valid {int((s_k >= 0).sum())}, max score err {e:.3g}",
+          flush=True)
+    return e
+
+
+def phase_score(rng, bs=32, conf=0.25, device="cuda"):
+    """K2 against its plain version on bf16 head outputs of yolov3@640 at
+    batch 32 and at SCORE_EXTRA's shapes; device time per scale and for the
+    three scales, beside the byte bound of each."""
+    from yolov3_tpu_torch.ops.score_cuda import masked_scores, masked_scores_plain
 
     na, no = 3, 85
-    heads = []
-    for m in cells:
-        x = rng.normal(-3.0, 2.0, size=(bs, m, na * no)).astype(np.float32)
-        heads.append(torch.from_numpy(x).to(device, torch.bfloat16))
+    heads = make_heads(rng, [(bs, m, torch.bfloat16, 0) for m in SCORE_CELLS], na, no, device)
     t0 = time.perf_counter()
     masked_scores(heads[0], na, no, conf)
     torch.cuda.synchronize()
-    print(f"K2 masked_scores: triton compile + first launch {time.perf_counter() - t0:.2f} s", flush=True)
-    err = 0.0
-    for f in heads:
-        s_k, a_k = masked_scores(f, na, no, conf)
-        s_p, a_p = masked_scores_plain(f, na, no, conf)
-        check(torch.equal(a_k, a_p), f"masked_scores {tuple(f.shape)}: class args differ")
-        both = (s_k >= 0) & (s_p >= 0)
-        e = float((s_k - s_p)[both].abs().max()) if bool(both.any()) else 0.0
-        err = max(err, e)
-        check(e <= 1e-6, f"masked_scores {tuple(f.shape)}: scores differ by {e} > 1e-6")
-        v = f.reshape(bs, -1, no).float()
-        obj = torch.sigmoid(v[..., 4])
-        score = obj * torch.sigmoid(v[..., 5:].amax(-1))
-        # within 1e-6 of the threshold either side may round across it
-        near = ((score - conf).abs() <= 1e-6) | ((obj - conf).abs() <= 1e-6)
-        flips = ((s_k >= 0) != (s_p >= 0)) & ~near
-        check(not bool(flips.any()), f"masked_scores {tuple(f.shape)}: valid masks differ")
-        print(f"K2 masked_scores {tuple(f.shape)}: args equal, valid {int((s_k >= 0).sum())}, "
-              f"max score err {e:.3g}", flush=True)
+    print(f"K2 masked_scores: first launch {time.perf_counter() - t0:.2f} s", flush=True)
+    err = max(check_scores(f, na, no, conf, f"yolov3@640 {int(f.shape[1] ** 0.5)}x{int(f.shape[1] ** 0.5)}")
+              for f in heads)
+    # a generator of their own: the serving frames drawn from `rng` later stay those of earlier PRs
+    extra = make_heads(np.random.default_rng(1), [row[1:] for row in SCORE_EXTRA], na, no, device)
+    for (label, *_), f in zip(SCORE_EXTRA, extra):
+        err = max(err, check_scores(f, na, no, conf, label))
+    check(extra[3].data_ptr() % 16 != 0 and extra[4].data_ptr() % 16 != 0, "the unaligned views are aligned")
 
     def run(fn):
         return lambda: [fn(f, na, no, conf) for f in heads]
 
-    ms = device_ms(run(masked_scores), "score_kernel", per_call=len(heads))
+    def nbytes(f):
+        return f.numel() * f.element_size() + f.shape[0] * f.shape[1] * na * 8
+
+    scales = []
+    for f in heads:
+        ms = device_ms(lambda: masked_scores(f, na, no, conf), SCORE_KERNEL)
+        bound = nbytes(f) / HBM_BYTES_PER_S * 1e3
+        scales.append(dict(cells=f.shape[1], ms=ms, bound_ms=bound, mb=nbytes(f) / 1e6))
+    ms = device_ms(run(masked_scores), SCORE_KERNEL, per_call=len(heads))
     launch_ms = cuda_ms(run(masked_scores))
     plain_ms = cuda_ms(run(masked_scores_plain))
-    nbytes = sum(f.numel() * 2 + f.shape[0] * f.shape[1] * na * 8 for f in heads)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    total = sum(nbytes(f) for f in heads)
+    bound_ms = total / HBM_BYTES_PER_S * 1e3
+    print("K2 masked_scores bs32 per scale: " + "; ".join(
+        f"{int(r['cells'] ** 0.5)}x{int(r['cells'] ** 0.5)} {r['ms']:.4f} ms device, bound {r['bound_ms']:.4f} ms "
+        f"({r['mb']:.1f} MB)" for r in scales), flush=True)
     print(f"K2 masked_scores bs{bs}, 3 scales: kernel {ms:.4f} ms device ({launch_ms:.4f} ms with "
-          f"launches), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB)", flush=True)
+          f"launches), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({total / 1e6:.1f} MB), "
+          f"{bound_ms / ms:.1%} of the bound", flush=True)
     return dict(max_abs_err=err, ms=ms, launch_ms=launch_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes")
+                bound_by="bytes", scales=scales)
 
 
 def plant_detections(model, base, gains, deltas, cls_bump=12.0):
@@ -305,7 +367,7 @@ def calibrate(model, probe, targets=(112.0, 28.0, 10.0), conf=0.25):
 
 KERNEL_GROUPS = (  # kernel-name substrings -> the layer it belongs to
     ("K1 greedy_nms", ("greedy_nms",)),
-    ("K2 masked_scores", ("score_kernel",)),
+    ("K2 masked_scores", (SCORE_KERNEL,)),
     ("convolutions (cuDNN, cuBLAS)", ("conv", "gemm", "xmma", "cutlass", "sm90", "cudnn", "nhwc", "nvjet")),
     ("sort (top-k)", ("sort", "radix")),
 )
@@ -345,7 +407,7 @@ def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32):
     from yolov3_tpu_torch.ops import nms as nms_module
     from yolov3_tpu_torch.ops.nms import nms_from_candidates
     from yolov3_tpu_torch.ops.nms_cuda import greedy_nms, greedy_nms_plain
-    from yolov3_tpu_torch.ops.score_triton import masked_scores, masked_scores_plain
+    from yolov3_tpu_torch.ops.score_cuda import masked_scores, masked_scores_plain
     from yolov3_tpu_torch.serve import MicroBatcher, build_batched_infer
 
     frames = rng.integers(0, 256, size=(n_requests, imgsz, imgsz, 3), dtype=np.uint8)
@@ -416,7 +478,9 @@ def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32):
     profile_fast_path(infer, imgs)
 
     # the fast path with kernels vs the plain score and NMS on the same bf16 head outputs
+    fallbacks = infer.fallbacks
     dets_k, n_k = infer(imgs)
+    check(infer.fallbacks == fallbacks, "the compared batch took the full-decode fallback")
     with torch.inference_mode():
         feats = infer.serving_model(imgs.to(torch.bfloat16) / 255.0, raw=True)
         boxes, scores, cls_ids, ov = decode_topk_nhwc(feats, model.anchors_px, model.spec.strides,
@@ -433,6 +497,163 @@ def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32):
     print(f"fast path vs plain kernels' versions: n equal (sum {int(n_k.sum())}), "
           f"max box err {box_err:.3g} px, max conf err {conf_err:.3g}", flush=True)
     return launches, dict(img_s=n_requests / serve_s, batch_ms=batch_ms)
+
+
+# a 390x500 frame letterboxed into 512x640: gain 1.28, 6.4 rows of padding above and below
+RECT_META = ((390, 500), ((1.28, 1.28), (0.0, 6.4)))
+VAL_BATCHES = ((32, 640, 640, None), (8, 512, 640, RECT_META))  # (B, H, W, shapes meta of each image)
+
+
+def make_val_batches(rng, model, batches=VAL_BATCHES):
+    """Seeded uint8 frames labelled with the f32 val path's own detections
+    above conf 0.25, from a pass through the plain NMS: (imgs, targets (B, M, 5)
+    [cls, xywh normalised to the frame], mask, shapes) batches, the layout of
+    the JAX package's DataLoader."""
+    from yolov3_tpu_torch.eval.validator import make_forward
+    from yolov3_tpu_torch.ops.boxes import xyxy2xywh
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms_plain
+
+    forward = make_forward(model, nms_fn=greedy_nms_plain)
+    out = []
+    for B, H, W, meta in batches:
+        imgs = rng.integers(0, 256, size=(B, H, W, 3), dtype=np.uint8)
+        dets, n = forward(torch.as_tensor(imgs, device=model.device))
+        dets, n = dets.cpu().numpy(), n.cpu().numpy()
+        labels = [d[:k][d[:k, 4] > 0.25] for d, k in zip(dets, n)]
+        M = max(1, max(len(lb) for lb in labels))
+        targets, mask = np.zeros((B, M, 5), np.float32), np.zeros((B, M), bool)
+        for i, lb in enumerate(labels):
+            targets[i, :len(lb), 0] = lb[:, 5]
+            targets[i, :len(lb), 1:] = xyxy2xywh(lb[:, :4]) / np.array([W, H, W, H], np.float32)
+            mask[i, :len(lb)] = True
+        out.append((imgs, targets, mask, [meta] * B))
+    return out
+
+
+def profile_val_batch(model, imgs, nms_kw):
+    """Device time of one val batch by stage: the f32 forward, the decode and
+    batched_nms (split into K1, the sort and the rest by kernel name), each in
+    a profiler window of its own, so a stage's time is every kernel in its
+    window; then the whole validator step (eval.validator.make_forward) for the
+    device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from yolov3_tpu_torch.eval.validator import make_forward
+    from yolov3_tpu_torch.models.detect_head import decode_predictions
+    from yolov3_tpu_torch.ops.nms import batched_nms
+
+    x = torch.as_tensor(imgs, device="cuda")
+    with torch.inference_mode():
+        feats = model(x.float() / 255.0)
+        pred = decode_predictions(feats, model.anchors_px, model.spec.strides)
+    step = make_forward(model, **nms_kw)
+    stages = (("forward", lambda: model(x.float() / 255.0)),
+              ("decode", lambda: decode_predictions(feats, model.anchors_px, model.spec.strides)),
+              ("nms", lambda: batched_nms(pred, multi_label=True, **nms_kw)),
+              ("step", lambda: step(x)))
+    out = {}
+    for label, fn in stages:
+        with torch.inference_mode():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        check(spans, f"the val profile saw no kernel in the {label} window")
+        out[f"{label}_ms"] = sum(end - start for start, end, _ in spans) / 1e3
+        if label == "nms":
+            out["k1_ms"] = sum(end - start for start, end, name in spans if NMS_KERNEL in name) / 1e3
+            out["sort_ms"] = sum(end - start for start, end, name in spans
+                                 if "sort" in name.lower() or "radix" in name.lower()) / 1e3
+        if label == "step":
+            busy, edge = 0.0, -1.0
+            for start, end, _ in spans:
+                busy += max(0.0, end - max(start, edge))
+                edge = max(edge, end)
+            out.update(step_wall_ms=wall_us / 1e3, device_busy=busy / wall_us)
+    print(f"val profile, one batch of {imgs.shape[0]} at {imgs.shape[1]}x{imgs.shape[2]}, device ms: forward (f32) "
+          f"{out['forward_ms']:.3f}, decode {out['decode_ms']:.3f}, batched_nms {out['nms_ms']:.3f} = multi-label sort "
+          f"{out['sort_ms']:.3f} + K1 {out['k1_ms']:.3f} + candidates and gathers "
+          f"{out['nms_ms'] - out['sort_ms'] - out['k1_ms']:.3f}; the whole step {out['step_ms']:.3f} ms of kernels, "
+          f"device busy {out['device_busy']:.1%} of {out['step_wall_ms']:.3f} ms wall (profiler on)", flush=True)
+    return out
+
+
+def phase_val(rng, model):
+    """The val path: validator.run at the val-grade defaults on a self-labelled
+    set (VAL_BATCHES), f32 and half=True; K1 once a batch at K = 30000; the
+    same run through the plain NMS gives the same metrics, and K1's
+    detections equal the plain NMS's on the same predictions."""
+    from yolov3_tpu_torch.eval import validator
+    from yolov3_tpu_torch.models.detect_head import decode_predictions
+    from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
+    from yolov3_tpu_torch.ops.nms import batched_nms
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms, greedy_nms_plain
+    from yolov3_tpu_torch.ops.score_cuda import masked_scores
+
+    t0 = time.perf_counter()
+    batches = make_val_batches(rng, model)
+    n_imgs = sum(b[0].shape[0] for b in batches)
+    n_labels = int(sum(b[2].sum() for b in batches))
+    print(f"val set: {len(batches)} batches {[b[0].shape[:3] for b in batches]}, {n_labels} labels (the f32 "
+          f"val path's detections above conf 0.25, plain NMS) in {time.perf_counter() - t0:.2f} s", flush=True)
+    check(n_labels > 0, "the self-labelling pass found no detection above conf 0.25")
+    validator.run(model=model, dataloader=batches[:1])  # warm-up: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+
+    # --- the val path: every launch from here to the count read is the path's own
+    greedy_nms.launches = masked_scores.launches = conv3x3_bn_stats.launches = 0
+    t0 = time.perf_counter()
+    results, _, speeds = validator.run(model=model, dataloader=batches)
+    wall = time.perf_counter() - t0
+    launches = {"greedy_nms": greedy_nms.launches, "masked_scores": masked_scores.launches,
+                "conv3x3_bn_stats": conv3x3_bn_stats.launches}
+    route = greedy_nms.last_route
+    # --- end of the val path
+
+    t0 = time.perf_counter()
+    results_half, _, speeds_half = validator.run(model=model, dataloader=batches, half=True)
+    wall_half = time.perf_counter() - t0
+    results_plain, _, _ = validator.run(model=model, dataloader=batches, nms_fn=greedy_nms_plain)
+    out = {}
+    for label, res, sp, w in (("f32", results, speeds, wall), ("half", results_half, speeds_half, wall_half)):
+        mp, mr, map50, map_ = (float(v) for v in res[:4])
+        out[label] = dict(mp=mp, mr=mr, map50=map50, map=map_, ms_per_batch=w / len(batches) * 1e3,
+                          img_s=n_imgs / w, ms_per_image=dict(zip(("pre", "inference+nms", "post"), sp)))
+        print(f"val path {label}: P {mp:.4f} R {mr:.4f} mAP50 {map50:.4f} mAP50-95 {map_:.4f}; "
+              f"{w / len(batches) * 1e3:.1f} ms per batch, {n_imgs / w:.1f} img/s (host clock around "
+              f"validator.run, {n_imgs} images); ms per image: pre {sp[0]:.3f}, inference+NMS {sp[1]:.3f}, "
+              f"post {sp[2]:.3f}", flush=True)
+    print(f"val path: launches {launches} for {len(batches)} batches, K1 route [{route}]; half=True mAP50 "
+          f"{out['half']['map50'] - out['f32']['map50']:+.4f}, mAP50-95 {out['half']['map'] - out['f32']['map']:+.4f} "
+          f"against f32", flush=True)
+    check(launches == {"greedy_nms": len(batches), "masked_scores": 0, "conv3x3_bn_stats": 0},
+          f"val path launches {launches}, expected K1 once a batch and nothing else")
+    check(route == "block per image, candidates in global memory", f"K1 took [{route}] on the val path")
+    check(out["f32"]["map50"] >= 0.95, f"f32 mAP50 {out['f32']['map50']} < 0.95 on the self-labelled set")
+    check(np.array_equal(np.array(results[:4]), np.array(results_plain[:4])),
+          f"metrics through K1 {results[:4]} differ from those through the plain NMS {results_plain[:4]}")
+
+    n_dets = 0
+    kw = dict(conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30000)  # the val-grade defaults
+    for imgs, *_ in batches:  # K1 against the plain NMS on the same predictions
+        with torch.inference_mode():
+            feats = model(torch.as_tensor(imgs, device=model.device).float() / 255.0)
+            pred = decode_predictions(feats, model.anchors_px, model.spec.strides)
+            dets_k, n_k = batched_nms(pred, multi_label=True, **kw)
+            dets_p, n_p = batched_nms(pred, multi_label=True, nms_fn=greedy_nms_plain, **kw)
+        check(torch.equal(n_k, n_p) and torch.equal(dets_k, dets_p),
+              f"val detections through K1 differ from the plain NMS's at {tuple(imgs.shape)}")
+        n_dets += int(n_k.sum())
+    print(f"val path: K1 detections equal to the plain NMS's on the same predictions ({n_dets} detections), "
+          f"metrics through the plain NMS equal", flush=True)
+    out.update(launches=launches, route=route, n_labels=n_labels, n_images=n_imgs,
+               profile=profile_val_batch(model, batches[0][0], kw))
+    return out
 
 
 K3_KERNELS = ("conv3x3_stats", "bn_stats_finalize")  # the conv kernel and its fixed-order stats reduction
@@ -742,11 +963,15 @@ def phase_train(rng, model, bs=8, imgsz=640, steps=10, convs_per_step=33):
 
 def phase_kernel_times(rng, tag):
     """K3 at yolov3's six shapes (batch 8, bf16, the weight as nn.modules.Conv
-    hands it over) and K1 at NMS_SHAPES: device ms by kernel name and ms by
-    CUDA events, each on its own line after `tag`. The first K3 shape has next
-    to no device work: its time by events is the host's cost of one call."""
+    hands it over), K1 at NMS_SHAPES and K2 at yolov3@640's three scales
+    (batch 32, bf16; each scale and the three together): device ms by kernel
+    name and ms by CUDA events, each on its own line after `tag`. The first K3
+    shape has next to no device work: its time by events is the host's cost of
+    one call."""
     from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
     from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
+
+    masked_scores = score_module().masked_scores
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     for H, W, Cin, Cout in [(16, 16, 64, 64), *(row[3:] for row in K3_TIMED)]:
@@ -762,6 +987,15 @@ def phase_kernel_times(rng, tag):
         dev = device_ms(lambda: greedy_nms(*args, iou, 300), NMS_KERNEL)
         ev = cuda_ms(lambda: greedy_nms(*args, iou, 300), iters=50)
         print(f"{tag} K1 {label}: device {dev:.4f} ms, events {ev:.4f} ms", flush=True)
+    heads = make_heads(rng, [(32, m, torch.bfloat16, 0) for m in SCORE_CELLS])
+    for label, fs in [*((f"{int(f.shape[1] ** 0.5)}x{int(f.shape[1] ** 0.5)}", [f]) for f in heads),
+                      ("3 scales", heads)]:
+        def run():
+            return [masked_scores(f, 3, 85, 0.25) for f in fs]
+
+        dev = device_ms(run, SCORE_KERNEL, per_call=len(fs))
+        ev = cuda_ms(run, iters=50)
+        print(f"{tag} K2 {label}: device {dev:.4f} ms, events {ev:.4f} ms", flush=True)
 
 
 def main(argv=()):
@@ -800,6 +1034,7 @@ def main(argv=()):
     check(model.num_params() == 61949149, f"yolov3 has {model.num_params()} parameters")
     conv_rows = phase_conv_bn()
     launches, e2e = phase_main_path(rng, model)
+    val = phase_val(rng, model)
     del model  # its head carries the planted detections; the trainer starts from the seeded init
     launches["conv3x3_bn_stats"], train = phase_train(rng, DetectionModel.from_config("yolov3", seed=0))
 
@@ -809,8 +1044,9 @@ def main(argv=()):
              replaces="yolov3_tpu/ops/nms_pallas.py:29", launches=launches["greedy_nms"],
              max_abs_err=max(r["max_abs_err"] for r in nms_rows.values()), ms=serving["ms"],
              plain_ms=serving["plain_ms"], bound_ms=serving["bound_ms"], bound_by=serving["bound_by"],
-             library_ms=None, latency_bound_ms=serving["latency_bound_ms"]),
-        dict(name="masked_scores", route="triton", source="yolov3_tpu_torch/ops/score_triton.py",
+             library_ms=None, latency_bound_ms=serving["latency_bound_ms"],
+             val_launches=val["launches"]["greedy_nms"]),
+        dict(name="masked_scores", route="cuda", source="yolov3_tpu_torch/csrc/score.cu",
              replaces="yolov3_tpu/ops/score_pallas.py:43", launches=launches["masked_scores"],
              max_abs_err=score["max_abs_err"], ms=score["ms"], plain_ms=score["plain_ms"],
              bound_ms=score["bound_ms"], bound_by=score["bound_by"], library_ms=None),
@@ -820,7 +1056,8 @@ def main(argv=()):
                 for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
     ]
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"nms_shapes": nms_rows, "conv_bn_shapes": conv_rows, "main_path": e2e, "train": train}))
+    print(json.dumps({"nms_shapes": nms_rows, "conv_bn_shapes": conv_rows, "main_path": e2e, "val": val,
+                      "train": train}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

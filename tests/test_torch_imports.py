@@ -52,6 +52,11 @@ def test_train_import_loads_no_jax():
                                 "yolov3_tpu_torch.train.loss, yolov3_tpu_torch.ops.conv_bn_cuda")
 
 
+def test_eval_import_loads_no_jax():
+    _assert_import_loads_no_jax("yolov3_tpu_torch.eval.validator, yolov3_tpu_torch.eval.cocoeval, "
+                                "yolov3_tpu_torch.ops.score_cuda")
+
+
 def test_device_none_raises_without_cuda(monkeypatch):
     from yolov3_tpu_torch.models.detection import DetectionModel
     from yolov3_tpu_torch.utils.general import select_device
@@ -67,7 +72,7 @@ def test_device_none_raises_without_cuda(monkeypatch):
 def test_wrappers_reject_other_devices():
     from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
     from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
-    from yolov3_tpu_torch.ops.score_triton import masked_scores
+    from yolov3_tpu_torch.ops.score_cuda import masked_scores
 
     with pytest.raises(ValueError, match="unsupported device"):
         masked_scores(torch.zeros(1, 4, 255, device="meta"), 3, 85, 0.25)

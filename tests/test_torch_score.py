@@ -1,4 +1,4 @@
-"""The plain version of the candidate-score kernel (yolov3_tpu_torch.ops.score_triton)
+"""The plain version of the candidate-score kernel (yolov3_tpu_torch.ops.score_cuda)
 against the JAX package on the same bf16 inputs.
 
 References: `masked_scores_pallas(interpret=True)`, whose (a, y, x) output
@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from yolov3_tpu.ops.score_pallas import masked_scores_pallas
-from yolov3_tpu_torch.ops.score_triton import masked_scores, masked_scores_plain
+from yolov3_tpu_torch.ops.score_cuda import masked_scores, masked_scores_plain
 
 CONF = 0.25
 SCORE_ATOL = 1e-6

@@ -6,7 +6,7 @@ public layouts (NHWC uint8 images in, (B, max_det, 6) f32 detections and
 (B,) counts out) and runs its hand-written kernels on the card:
 
     ops/nms_cuda.py + csrc/nms.cu           greedy NMS (CUDA C++, built with nvcc)
-    ops/score_triton.py                     candidate-score pass (Triton)
+    ops/score_cuda.py + csrc/score.cu       candidate-score pass (CUDA C++)
     ops/conv_bn_cuda.py + csrc/conv_bn.cu   3x3 conv + BatchNorm statistics of the
                                             train-mode forward (CUDA C++)
 

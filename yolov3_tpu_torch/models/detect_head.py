@@ -4,7 +4,7 @@
 output o, the reference's view(bs, na, no, ny, nx) split (yolo.py:98). Its
 raw form returns (B, ny, nx, na*no) NHWC views of the channels_last conv
 outputs; `decode_topk_nhwc` reads them with the candidate-score kernel
-(ops/score_triton.py) and decodes only the top-k candidates.
+(ops/score_cuda.py, csrc/score.cu) and decodes only the top-k candidates.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from yolov3_tpu_torch.ops.score_triton import masked_scores
+from yolov3_tpu_torch.ops.score_cuda import masked_scores
 
 
 def detect_bias(nc: int, na: int, stride: float) -> torch.Tensor:

@@ -1,18 +1,76 @@
-"""Box format conversion and aligned-box IoU (yolov3_tpu/ops/boxes.py, the part the port calls)."""
+"""Box geometry (yolov3_tpu/ops/boxes.py, the part the port calls).
+
+Each function takes numpy arrays (the validator's host loop) or torch
+tensors (the decode and the loss) and returns the same kind.
+"""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+
+def _xp(x):
+    """numpy for numpy input, torch for tensors."""
+    return np if isinstance(x, np.ndarray) else torch
+
+
+def xyxy2xywh(x):
+    """(x1,y1,x2,y2) corners -> (cx,cy,w,h) center format. Last axis size >=4."""
+    xp = _xp(x)
+    cx = (x[..., 0] + x[..., 2]) / 2
+    cy = (x[..., 1] + x[..., 3]) / 2
+    w = x[..., 2] - x[..., 0]
+    h = x[..., 3] - x[..., 1]
+    return xp.concatenate([xp.stack([cx, cy, w, h], -1), x[..., 4:]], -1)
 
 
 def xywh2xyxy(x):
     """(cx,cy,w,h) center format -> (x1,y1,x2,y2) corners. Last axis size >=4."""
+    xp = _xp(x)
     hw = x[..., 2] / 2
     hh = x[..., 3] / 2
-    out = torch.stack([x[..., 0] - hw, x[..., 1] - hh, x[..., 0] + hw, x[..., 1] + hh], -1)
-    return torch.cat([out, x[..., 4:]], -1)
+    out = xp.stack([x[..., 0] - hw, x[..., 1] - hh, x[..., 0] + hw, x[..., 1] + hh], -1)
+    return xp.concatenate([out, x[..., 4:]], -1)
+
+
+def clip_boxes(boxes, shape):
+    """Clip xyxy boxes to image bounds. `shape` is (height, width)."""
+    xp = _xp(boxes)
+    x1 = xp.clip(boxes[..., 0], 0, shape[1])
+    y1 = xp.clip(boxes[..., 1], 0, shape[0])
+    x2 = xp.clip(boxes[..., 2], 0, shape[1])
+    y2 = xp.clip(boxes[..., 3], 0, shape[0])
+    return xp.concatenate([xp.stack([x1, y1, x2, y2], -1), boxes[..., 4:]], -1)
+
+
+def scale_boxes(img1_shape, boxes, img0_shape, ratio_pad=None):
+    """Rescale xyxy boxes from letterboxed `img1_shape` (h,w) back to native `img0_shape`:
+    gain = min(h1/h0, w1/w0), symmetric padding, then clip (reference utils/general.py:613-628)."""
+    if ratio_pad is None:
+        gain = min(img1_shape[0] / img0_shape[0], img1_shape[1] / img0_shape[1])
+        pad = (img1_shape[1] - img0_shape[1] * gain) / 2, (img1_shape[0] - img0_shape[0] * gain) / 2
+    else:
+        gain = ratio_pad[0][0]
+        pad = ratio_pad[1]
+    xp = _xp(boxes)
+    out = xp.stack([(boxes[..., 0] - pad[0]) / gain, (boxes[..., 1] - pad[1]) / gain,
+                    (boxes[..., 2] - pad[0]) / gain, (boxes[..., 3] - pad[1]) / gain], -1)
+    return clip_boxes(xp.concatenate([out, boxes[..., 4:]], -1), img0_shape)
+
+
+def box_iou(box1, box2, eps=1e-7):
+    """Pairwise IoU of two xyxy box sets: (n,4) x (m,4) -> (n,m)."""
+    xp = _xp(box1)
+    lt = xp.maximum(box1[:, None, :2], box2[None, :, :2])  # (n,m,2)
+    rb = xp.minimum(box1[:, None, 2:4], box2[None, :, 2:4])
+    wh = xp.clip(rb - lt, 0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    area1 = (box1[:, 2] - box1[:, 0]) * (box1[:, 3] - box1[:, 1])
+    area2 = (box2[:, 2] - box2[:, 0]) * (box2[:, 3] - box2[:, 1])
+    return inter / (area1[:, None] + area2[None, :] - inter + eps)
 
 
 def bbox_iou(box1, box2, xywh=True, GIoU=False, DIoU=False, CIoU=False, eps=1e-7):

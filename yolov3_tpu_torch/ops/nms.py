@@ -17,12 +17,13 @@ MAX_WH = 7680  # maximum box width/height used for the class offset
 
 
 def batched_nms(prediction, conf_thres=0.25, iou_thres=0.45, classes=None, agnostic=False,
-                multi_label=False, max_det=300, max_nms=30000, merge=False):
+                multi_label=False, max_det=300, max_nms=30000, merge=False, nms_fn=None):
     """Batched NMS over decoded predictions.
 
     prediction: (bs, N, 5+nc) decoded [xywh, obj, cls...].
     Returns out (bs, max_det, 6) [xyxy, conf, cls], zero-padded, and
-    n_valid (bs,) int32.
+    n_valid (bs,) int32. `nms_fn` is the kernel wrapper `greedy_nms` (looked
+    up when called) unless a caller hands in the plain version to compare.
     """
     if merge:
         raise NotImplementedError("merge-NMS is not ported yet")
@@ -59,7 +60,8 @@ def batched_nms(prediction, conf_thres=0.25, iou_thres=0.45, classes=None, agnos
     top_box = torch.gather(box, 1, box_idx[top_i][..., None].expand(-1, -1, 4))
     top_cls = torch.gather(cls_ids, 1, top_i)
     offset = torch.zeros_like(top_cls) if agnostic else top_cls * MAX_WH
-    return greedy_nms(top_box + offset[..., None], top_box, top_scores, top_cls, iou_thres, max_det)
+    nms_fn = nms_fn or greedy_nms
+    return nms_fn(top_box + offset[..., None], top_box, top_scores, top_cls, iou_thres, max_det)
 
 
 def nms_from_candidates(boxes, scores, cls_ids, iou_thres=0.45, max_det=300, agnostic=False,
