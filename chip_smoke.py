@@ -5,7 +5,8 @@
 
 Phases, each printing its result on its own line:
   1. build every CUDA source of yolov3_tpu_torch/csrc/ with nvcc (sm_90a),
-     one nvcc process each, all started together;
+     one nvcc process each, all started together, and the host image ops
+     (csrc/host_ops.cpp) with the C++ compiler beside them;
   2. the greedy-NMS kernels against the plain version at the serving,
      fallback and val-grade shapes (one per kernel): outputs equal; the time
      of one step's dependent chain, from a run at one candidate a lane;
@@ -35,7 +36,16 @@ Phases, each printing its result on its own line:
      with 8 boxes each; finite falling loss, moved parameters, BatchNorm
      statistics and EMA, 33 launches of the conv+statistics kernel a step,
      one step with the kernel against one with its plain version from the
-     same state, a profile of a step by kernel group.
+     same state, a profile of a step by kernel group;
+  8. the trainer: a synthetic PNG dataset written to a temporary directory
+     (64 train and 32 val images, 480-800 px a side), the train loader
+     alone (mosaic at 640 px, batch 16, 8 threads), train.loop.train of
+     full-width yolov3 (nc 5) for 2 epochs with scratch-low (33 K3 launches
+     a step, one K1 launch a val batch, results.csv, `last` and `best`
+     stripped), a resume of a third epoch from the full state the second
+     saved (step, optimizer and EMA counters restored; device busy share
+     of its train loop under the profiler), and the stripped `best` served
+     through build_batched_infer (K2 and K1 launched).
 With `--kernel-times [ROOT]` it only times K3, K1 and K2 of the package under
 ROOT (default: beside this file) at the main paths' shapes and stops: run
 once per tree, parent, change, change, parent, to compare two trees on one
@@ -553,17 +563,20 @@ def profile_val_batch(model, imgs, nms_kw):
               ("step", lambda: step(x)))
     out = {}
     for label, fn in stages:
-        with torch.inference_mode():
-            fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
+        for _ in range(3):  # the profiler now and then drops every event of a short window: take it again
+            with torch.inference_mode():
                 fn()
                 torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        check(spans, f"the val profile saw no kernel in the {label} window")
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    wall_us = (time.perf_counter() - t0) * 1e6
+            spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA)
+            if spans:
+                break
+        check(spans, f"the val profile saw no kernel in the {label} window in 3 tries")
         out[f"{label}_ms"] = sum(end - start for start, end, _ in spans) / 1e3
         if label == "nms":
             out["k1_ms"] = sum(end - start for start, end, name in spans if NMS_KERNEL in name) / 1e3
@@ -961,6 +974,225 @@ def phase_train(rng, model, bs=8, imgsz=640, steps=10, convs_per_step=33):
     return launches, out
 
 
+TRAINER_IMAGES = (64, 32)  # synthetic PNG images in the train and val splits
+TRAINER_IMGSZ = 640
+TRAINER_BS = 16
+TRAINER_WORKERS = 8
+TRAINER_EPOCHS = 2
+YOLOV3_K3_CONVS = 33  # stride-1 3x3 convs of yolov3: K3 launches in each train step
+
+
+class EpochClock:
+    """Host timestamps of the trainer's epochs, taken by callbacks, and an
+    optional profiler range around each epoch's train loop."""
+
+    HOOKS = ("on_train_epoch_start", "on_train_batch_start", "on_train_epoch_end", "on_val_end", "on_model_save")
+
+    def __init__(self, callbacks, ranged=False):
+        self.marks = []
+        self.ranged = ranged
+        self._range = None
+        for hook in self.HOOKS:
+            callbacks.register_action(hook, "clock", lambda hook=hook, **kw: self.mark(hook))
+
+    def mark(self, hook):
+        self.marks.append((hook, time.perf_counter()))
+        if self.ranged and hook == "on_train_epoch_start":
+            self._range = torch.profiler.record_function("trainer/epoch_train_loop")
+            self._range.__enter__()
+        elif self.ranged and hook == "on_train_epoch_end":
+            self._range.__exit__(None, None, None)
+
+    def epochs(self):
+        """Per epoch: (train loop s, train loop s from the second batch's
+        start, val s, checkpoint save s, epoch wall s). The whole loop holds
+        the loader's start-up (its threads, its first batches); the loop from
+        the second batch holds the steps after the first."""
+        out, t, batches = [], {}, []
+        for hook, when in self.marks:
+            t[hook] = when
+            if hook == "on_train_epoch_start":
+                batches = []
+            elif hook == "on_train_batch_start":
+                batches.append(when)
+            elif hook == "on_model_save":
+                s, e, v = t["on_train_epoch_start"], t["on_train_epoch_end"], t["on_val_end"]
+                out.append((e - s, e - batches[1], v - e, when - v, when - s))
+        return out
+
+
+def busy_share(prof, range_name):
+    """Device busy share (merged kernel time over wall) inside the host range `range_name`."""
+    window = [(e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CPU and e.name == range_name]
+    check(window, f"the profiler saw no {range_name} range")
+    lo, hi = window[0]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+                   and e.time_range.start >= lo and e.time_range.end <= hi)
+    check(spans, "the profiler saw no device activity in the trainer's epoch")
+    busy, edge = 0.0, -1.0
+    for start, end in spans:
+        busy += max(0.0, end - max(start, edge))
+        edge = max(edge, end)
+    return busy / (hi - lo), len(spans)
+
+
+def phase_trainer():
+    """Drive the trainer on the card: a synthetic PNG dataset on disk, the
+    train loader alone, `train()` for TRAINER_EPOCHS at full width, a resume
+    of one more epoch from the full state saved after the last epoch, and
+    the stripped `best` served through build_batched_infer. Returns
+    (launches of each kernel over the trainer's run, measurements)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from yolov3_tpu_torch.data import synthetic
+    from yolov3_tpu_torch.data.augment import letterbox
+    from yolov3_tpu_torch.data.datasets import DataLoader, DetectionDataset
+    from yolov3_tpu_torch.data.image_ops import imread
+    from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
+    from yolov3_tpu_torch.ops.score_cuda import masked_scores
+    from yolov3_tpu_torch.serve import build_batched_infer
+    from yolov3_tpu_torch.train.loop import HYPS, train
+    from yolov3_tpu_torch.utils.autobatch import check_train_batch_size
+    from yolov3_tpu_torch.utils.callbacks import Callbacks
+    from yolov3_tpu_torch.utils.checkpoint import load_checkpoint, load_model_from_checkpoint
+    from yolov3_tpu_torch.utils.general import yaml_load
+    from yolov3_tpu_torch.utils.loggers import read_results
+
+    (n_train, n_val), imgsz, bs, workers, epochs = (TRAINER_IMAGES, TRAINER_IMGSZ, TRAINER_BS, TRAINER_WORKERS,
+                                                     TRAINER_EPOCHS)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
+    try:
+        t0 = time.perf_counter()
+        synthetic.generate(tmp / "shapes", n_images=n_train, imgsz=imgsz, seed=0, n_val=n_val)
+        data = str(tmp / "shapes" / "dataset.yaml")
+        gen_s = time.perf_counter() - t0
+
+        # the train loader alone: mosaic, HSV, flips at imgsz, `workers` threads (train()'s default hyps)
+        ds = DetectionDataset(str(tmp / "shapes/images/train"), imgsz=imgsz, augment=True,
+                              hyp=yaml_load(HYPS / "scratch-low.yaml"), batch_size=bs,
+                              num_cls=len(synthetic.CLASSES))
+        loader = DataLoader(ds, batch_size=bs, shuffle=True, drop_last=True, workers=workers, label_buckets=True)
+        t0 = time.perf_counter()
+        arrivals = [time.perf_counter() for _ in loader]
+        loader_img_s = len(arrivals) * bs / (arrivals[-1] - t0)
+        loader_steady_img_s = (len(arrivals) - 1) * bs / (arrivals[-1] - arrivals[0])
+        print(f"trainer: {n_train} + {n_val} PNG images written in {gen_s:.2f} s; train loader alone "
+              f"(mosaic at {imgsz} px, batch {bs}, {workers} workers): {loader_img_s:.1f} img/s over "
+              f"{len(arrivals)} batches, first batch after {(arrivals[0] - t0) * 1e3:.1f} ms, "
+              f"{loader_steady_img_s:.1f} img/s after it", flush=True)
+
+        run = tmp / "run"
+        kw = dict(cfg="yolov3", batch_size=bs, imgsz=imgsz, noplots=True, workers=workers, save_dir=run)
+        steps = n_train // bs
+        cb = Callbacks()
+        clock = EpochClock(cb)
+        full = tmp / "last_full"  # the unstripped `last` of the final epoch, kept for the resume
+        cb.register_action("on_model_save", "keep", lambda epoch, final, **_: final and shutil.copytree(
+            run / "weights" / "last", full))
+
+        # --- the trainer: every launch from here to the count read is the path's own
+        conv3x3_bn_stats.launches = greedy_nms.launches = masked_scores.launches = 0
+        t0 = time.perf_counter()
+        train(data, epochs=epochs, callbacks=cb, **kw)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {"conv3x3_bn_stats": conv3x3_bn_stats.launches, "greedy_nms": greedy_nms.launches,
+                    "masked_scores": masked_scores.launches}
+        # --- end of the trainer
+
+        rows = read_results(run / "results.csv")
+        val_batches = -(-n_val // bs)
+        per_epoch = clock.epochs()
+        print(f"trainer: {epochs} epochs of {steps} steps in {train_s:.2f} s, launches {launches}", flush=True)
+        for e, (loop_s, steady_s, val_s, save_s, wall_s) in enumerate(per_epoch):
+            print(f"trainer epoch {e}: wall {wall_s:.2f} s = train loop {loop_s:.3f} s ({n_train / loop_s:.1f} img/s; "
+                  f"{(steps - 1) * bs / steady_s:.1f} img/s from the second batch) + val {val_s * 1e3:.1f} ms "
+                  f"+ checkpoints {save_s:.2f} s; losses "
+                  + " ".join(f"{rows[e][k]:.4f}" for k in ("train/box_loss", "train/obj_loss", "train/cls_loss")),
+                  flush=True)
+        check(len(rows) == epochs and [int(r["epoch"]) for r in rows] == list(range(epochs)),
+              f"results.csv rows {[r['epoch'] for r in rows]}")
+        check(all(np.isfinite(list(r.values())).all() for r in rows), "a results.csv value is not finite")
+        for name in ("last", "best"):
+            check(yaml_load(run / "weights" / name / "checkpoint.yaml").get("stripped") is True,
+                  f"weights/{name} is not stripped")
+        check(launches["conv3x3_bn_stats"] == YOLOV3_K3_CONVS * steps * epochs,
+              f"K3 launched {launches['conv3x3_bn_stats']} times in {steps * epochs} steps")
+        check(launches["greedy_nms"] == val_batches * epochs,
+              f"K1 launched {launches['greedy_nms']} times for {val_batches} val batches x {epochs} epochs")
+
+        # resume one more epoch from the full state of the last epoch, under the profiler
+        shutil.rmtree(run / "weights" / "last")
+        shutil.copytree(full, run / "weights" / "last")
+        saved, _ = load_checkpoint(full)
+        cb = Callbacks()
+        clock_r = EpochClock(cb, ranged=True)
+        resumed = tmp / "resumed_full"
+        cb.register_action("on_model_save", "keep", lambda final, **_: final and shutil.copytree(
+            run / "weights" / "last", resumed))
+        conv3x3_bn_stats.launches = 0
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            train(data, epochs=epochs + 1, resume=True, callbacks=cb, **kw)
+        busy, n_kernels = busy_share(prof, "trainer/epoch_train_loop")
+        resume_launches = conv3x3_bn_stats.launches
+        after, meta = load_checkpoint(resumed)
+        rows = read_results(run / "results.csv")
+        check([int(r["epoch"]) for r in rows] == list(range(epochs + 1)), f"resumed results.csv rows {len(rows)}")
+        check(meta["epoch"] == epochs, f"the resumed run saved epoch {meta['epoch']}")
+        check(saved["step"] == steps * epochs and after["step"] == steps * (epochs + 1),
+              f"step counter {saved['step']} -> {after['step']}")
+        upd, accumulate = saved["optimizer"]["updates"], max(round(64 / bs), 1)  # nbs 64
+        check(upd == steps * epochs // accumulate and after["optimizer"]["updates"] == upd + steps // accumulate
+              and after["ema"]["updates"] == steps * (epochs + 1),
+              f"optimizer updates {upd} -> {after['optimizer']['updates']}, ema {after['ema']['updates']}")
+        check(upd == 0 or len(saved["optimizer"]["optimizer"]["state"]) > 0, "the saved optimizer state is empty")
+        check(resume_launches == YOLOV3_K3_CONVS * steps, f"K3 launched {resume_launches} times on resume")
+        (loop_s, steady_s, val_s, save_s, wall_s), = clock_r.epochs()
+        print(f"trainer resume: epoch {epochs} from step {saved['step']} (optimizer updates {upd}) to step "
+              f"{after['step']} (updates {after['optimizer']['updates']}); wall {wall_s:.2f} s, train loop "
+              f"{loop_s:.3f} s under the profiler, device busy {busy:.1%} of it ({n_kernels} kernels)", flush=True)
+
+        # the stripped best, served
+        model = load_model_from_checkpoint(run / "weights" / "best")
+        frames = np.stack([letterbox(imread(f), imgsz, auto=False)[0][:, :, ::-1]
+                           for f in sorted((tmp / "shapes/images/val").glob("*.png"))[:32]])
+        infer = build_batched_infer(model)
+        infer(frames[:2])  # warm-up
+        torch.cuda.synchronize()
+        greedy_nms.launches = masked_scores.launches = 0
+        t0 = time.perf_counter()
+        dets, n = (t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t) for t in infer(frames))
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        serve_launches = {"greedy_nms": greedy_nms.launches, "masked_scores": masked_scores.launches}
+        check(dets.shape == (len(frames), 300, 6) and np.isfinite(dets).all(), f"served dets {dets.shape}")
+        check(serve_launches["greedy_nms"] >= 1 and serve_launches["masked_scores"] >= 1,
+              f"the served batch did not launch K1 and K2: {serve_launches}")
+        print(f"trainer serve: stripped best, batch {len(frames)} in {serve_ms:.2f} ms, {infer.fallbacks} "
+              f"fallbacks, detections per image mean {n.mean():.2f}, launches {serve_launches}", flush=True)
+        # train(batch_size=-1): a trial step at two batch sizes on a copy of the model
+        autobatch = check_train_batch_size(model, imgsz=imgsz)
+        check(1 <= autobatch <= 1024, f"AutoBatch chose {autobatch}")
+        print(f"trainer AutoBatch: batch {autobatch} for yolov3@{imgsz} on this card", flush=True)
+        keys = ("loop_s", "loop_from_second_batch_s", "val_s", "save_s", "wall_s")
+        out = dict(loader_img_s=loader_img_s, loader_img_s_after_first_batch=loader_steady_img_s,
+                   epochs=[dict(zip(keys, e)) for e in per_epoch],
+                   train_img_s=[n_train / e[0] for e in per_epoch],
+                   train_img_s_from_second_batch=[(steps - 1) * bs / e[1] for e in per_epoch],
+                   resume_device_busy=busy, resume_epoch=dict(zip(keys, (loop_s, steady_s, val_s, save_s, wall_s))),
+                   serve_ms=serve_ms, serve_launches=serve_launches, autobatch=autobatch, losses=[
+                       [r[k] for k in ("train/box_loss", "train/obj_loss", "train/cls_loss")] for r in rows])
+        return launches, out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_kernel_times(rng, tag):
     """K3 at yolov3's six shapes (batch 8, bf16, the weight as nn.modules.Conv
     hands it over), K1 at NMS_SHAPES and K2 at yolov3@640's three scales
@@ -1008,7 +1240,7 @@ def main(argv=()):
             sys.path.insert(0, argv[1])  # the package of another tree, ahead of the one beside this file
         phase_kernel_times(np.random.default_rng(0), argv[1] if len(argv) > 1 else ".")
         return 0
-    from yolov3_tpu_torch.ops import cuda_build
+    from yolov3_tpu_torch.ops import cuda_build, host_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1018,9 +1250,12 @@ def main(argv=()):
           flush=True)
 
     t0 = time.perf_counter()
-    built = cuda_build.build_all()
-    print(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s with {cuda_build.nvcc()} "
-          f"for {gpu}", flush=True)
+    with ThreadPoolExecutor(1) as pool:  # the host ops' C++ build beside the nvcc builds
+        host_lib = pool.submit(host_build.build)
+        built = cuda_build.build_all()
+        host_lib = host_lib.result()
+    print(f"build: {sorted(built)} and {host_lib.name} in {time.perf_counter() - t0:.1f} s with "
+          f"{cuda_build.nvcc()} and {host_build.compiler()} for {gpu}", flush=True)
     for name, (sec, log) in built.items():
         info = [ln.strip() for ln in log.splitlines() if "registers" in ln or "bytes stack" in ln]
         print(f"build {name}.cu: {sec:.1f} s; " + " | ".join(info), flush=True)
@@ -1037,6 +1272,7 @@ def main(argv=()):
     val = phase_val(rng, model)
     del model  # its head carries the planted detections; the trainer starts from the seeded init
     launches["conv3x3_bn_stats"], train = phase_train(rng, DetectionModel.from_config("yolov3", seed=0))
+    trainer_launches, trainer = phase_trainer()
 
     serving = nms_rows["serving"]
     kernels = [
@@ -1045,19 +1281,22 @@ def main(argv=()):
              max_abs_err=max(r["max_abs_err"] for r in nms_rows.values()), ms=serving["ms"],
              plain_ms=serving["plain_ms"], bound_ms=serving["bound_ms"], bound_by=serving["bound_by"],
              library_ms=None, latency_bound_ms=serving["latency_bound_ms"],
-             val_launches=val["launches"]["greedy_nms"]),
+             val_launches=val["launches"]["greedy_nms"], trainer_launches=trainer_launches["greedy_nms"],
+             trainer_serve_launches=trainer["serve_launches"]["greedy_nms"]),
         dict(name="masked_scores", route="cuda", source="yolov3_tpu_torch/csrc/score.cu",
              replaces="yolov3_tpu/ops/score_pallas.py:43", launches=launches["masked_scores"],
              max_abs_err=score["max_abs_err"], ms=score["ms"], plain_ms=score["plain_ms"],
-             bound_ms=score["bound_ms"], bound_by=score["bound_by"], library_ms=None),
+             bound_ms=score["bound_ms"], bound_by=score["bound_by"], library_ms=None,
+             trainer_serve_launches=trainer["serve_launches"]["masked_scores"]),
         dict(name="conv3x3_bn_stats", route="cuda", source="yolov3_tpu_torch/csrc/conv_bn.cu",
              replaces="yolov3_tpu/ops/conv_bn_pallas.py:33", launches=launches["conv3x3_bn_stats"],
              **{k: conv_rows[K3_MAIN_SHAPE][k]
-                for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+                for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+             trainer_launches=trainer_launches["conv3x3_bn_stats"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"nms_shapes": nms_rows, "conv_bn_shapes": conv_rows, "main_path": e2e, "val": val,
-                      "train": train}))
+                      "train": train, "trainer": trainer}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,5 +1,7 @@
 """Import hygiene of the PyTorch port: it never imports JAX, flax, optax or
-the JAX package, and its entry points refuse to drop to the CPU on their own."""
+the JAX package, nor OpenCV or Pillow at module level (a JPEG decoder
+imports one of them inside the function), and its entry points refuse to
+drop to the CPU on their own."""
 
 import ast
 import subprocess
@@ -12,7 +14,11 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "yolov3_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "flax", "optax", "yolov3_tpu"}
-TRAIN_MODULES = ("train/__init__.py", "train/loss.py", "train/optim.py", "train/step.py", "ops/conv_bn_cuda.py")
+TRAIN_MODULES = ("train/__init__.py", "train/loss.py", "train/optim.py", "train/step.py", "ops/conv_bn_cuda.py",
+                 "train/loop.py", "data/__init__.py", "data/augment.py", "data/datasets.py", "data/dataset_yaml.py",
+                 "data/image_ops.py", "data/synthetic.py", "ops/host_build.py", "utils/autoanchor.py",
+                 "utils/autobatch.py", "utils/callbacks.py", "utils/checkpoint.py", "utils/loggers/__init__.py")
+IMAGE_LIBRARIES = {"cv2", "PIL"}
 
 
 def imported_roots(path):
@@ -29,6 +35,15 @@ def imported_roots(path):
 def test_no_jax_imports(path):
     bad = [(m, line) for m, line in imported_roots(path) if m in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_level_image_library_imports(path):
+    tree = ast.parse(path.read_text(), str(path))
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    roots = {a.name.split(".")[0] for n in top if isinstance(n, ast.Import) for a in n.names}
+    roots |= {n.module.split(".")[0] for n in top if isinstance(n, ast.ImportFrom) and n.level == 0}
+    assert not roots & IMAGE_LIBRARIES, f"{path.relative_to(ROOT)} imports {roots & IMAGE_LIBRARIES} at module level"
 
 
 def test_walk_covers_the_train_modules():
@@ -52,6 +67,15 @@ def test_train_import_loads_no_jax():
                                 "yolov3_tpu_torch.train.loss, yolov3_tpu_torch.ops.conv_bn_cuda")
 
 
+def test_trainer_import_loads_no_jax_cv2_or_pil():
+    modules = ("yolov3_tpu_torch.train.loop, yolov3_tpu_torch.data.datasets, yolov3_tpu_torch.data.synthetic, "
+               "yolov3_tpu_torch.utils.autobatch")
+    _assert_import_loads_no_jax(modules)
+    code = (f"import sys, {modules}; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('cv2', 'PIL')); assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
 def test_eval_import_loads_no_jax():
     _assert_import_loads_no_jax("yolov3_tpu_torch.eval.validator, yolov3_tpu_torch.eval.cocoeval, "
                                 "yolov3_tpu_torch.ops.score_cuda")
@@ -66,6 +90,10 @@ def test_device_none_raises_without_cuda(monkeypatch):
         DetectionModel.from_config("yolov3-tiny")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         select_device(None)
+    from yolov3_tpu_torch.train.loop import train
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(data="unused.yaml")
     assert select_device("cpu") == torch.device("cpu")
 
 

@@ -50,7 +50,7 @@ def test_every_conv_shape_is_a_chip_smoke_row(name):
 
 def test_yolov3_launch_split():
     shapes = stats_route_shapes("yolov3")
-    assert len(shapes) == 33
+    assert len(shapes) == chip_smoke.YOLOV3_K3_CONVS == 33  # the trainer phase's K3 launches per step
     by_map = Counter(H for H, _, _, _ in shapes)
     assert [by_map[h] for h in (640, 320, 160, 80, 40, 20)] == [1, 1, 2, 11, 11, 7]
     assert all(H == W for H, W, _, _ in shapes)

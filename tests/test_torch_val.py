@@ -394,19 +394,21 @@ def test_val_speed_task_uses_benchmark_settings(val_runs):
 # --- 3. what is not ported yet raises -----------------------------------------
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(augment=True), "item 10"),
-    (dict(plots=True), "item 10"),
-    (dict(save_hybrid=True), "item 5"),
-    (dict(sharded=True), "item 11"),
-    (dict(dataloader=None), "item 9"),
-    (dict(data="coco128.yaml"), "item 9"),
+@pytest.mark.parametrize("kwargs,error,match", [
+    (dict(augment=True), NotImplementedError, "item 10"),
+    (dict(plots=True), NotImplementedError, "item 10"),
+    (dict(save_hybrid=True), NotImplementedError, "item 5"),
+    (dict(sharded=True), NotImplementedError, "item 11"),
+    # item 9 is ported: without a dataloader `run` reads `data` (a dataset YAML or dict) and raises
+    # what reading it raises; tests/test_torch_trainer.py holds the loader it builds to the JAX one's
+    (dict(dataloader=None), ValueError, "needs `data`"),
+    (dict(data="coco128.yaml"), FileNotFoundError, "coco128.yaml"),
 ], ids=["augment", "plots", "save_hybrid", "sharded", "no-dataloader", "yaml-data"])
-def test_unported_arguments_raise(kwargs, item):
+def test_unported_arguments_raise(kwargs, error, match):
     model = DetectionModel(parse_spec(narrow_cfg())).eval()
     call = dict(model=model, dataloader=[])
     call.update(kwargs)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         validator.run(**call)
 
 

@@ -22,7 +22,11 @@ runs its plain PyTorch version.
 
 Training (train/): `build_optimizer`, `LossConfig.from_model` and
 `make_train_step(model, loss_cfg, optimizer)` give a step function over
-uint8 image batches and padded labels.
+uint8 image batches and padded labels; `train.loop.train(data="dataset.yaml",
+cfg="yolov3")` trains from images on disk through the data pipeline (data/),
+whose host image ops are the package's own C++ (csrc/host_ops.cpp, built
+with the system C++ compiler at first use), validates every epoch and
+writes checkpoints (utils/checkpoint.py).
 """
 
 __version__ = "0.1.0"

@@ -15,7 +15,10 @@ in the JAX package (process_batch at 10 IoUs 0.5:0.95, ap_per_class with
 
 `dataloader` is any iterable of (imgs (B, H, W, 3) uint8, targets (B, M, 5)
 f32 [cls, xywh normalised], mask (B, M) bool, shapes) batches, the layout of
-the JAX package's DataLoader; `shapes[i]` is None or ((h0, w0), ratio_pad).
+data.datasets.DataLoader; `shapes[i]` is None or ((h0, w0), ratio_pad).
+Without one, `run` builds the loader of `data` (a dataset YAML or dict) as
+the JAX validator does: the `task` split, letterboxed to imgsz, rect
+batches with pad 0.5.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from yolov3_tpu_torch.data.dataset_yaml import check_dataset
+from yolov3_tpu_torch.data.datasets import DataLoader, DetectionDataset
 from yolov3_tpu_torch.eval.metrics import ap_per_class, process_batch
 from yolov3_tpu_torch.models.detect_head import decode_predictions
 from yolov3_tpu_torch.models.detection import DetectionModel, cast_for_inference
@@ -60,11 +65,13 @@ def run(
     dataloader=None,
     loss_cfg=None,
     compute_loss_flag=False,
+    rect=True,
     max_nms=30000,
     names=None,
     save_txt=False,
     save_conf=False,
     half=False,
+    workers=1,
     callbacks=None,
     nms_fn=None,
     augment=False,
@@ -74,10 +81,10 @@ def run(
 ):
     """Evaluate `model` (a yolov3_tpu_torch DetectionModel) on `dataloader`.
 
-    data: None, or the dataset dict (its `val` entry marks COCO for the class
-    id map, its `path` holds annotations/instances_val2017.json for
-    save_json's COCO eval). batch_size and imgsz belong to the dataset
-    loader, which is not ported: a dataloader is required.
+    data: a dataset YAML or dict (its `val` entry marks COCO for the class id
+    map, its `path` holds annotations/instances_val2017.json for save_json's
+    COCO eval), or None when `dataloader` is given. batch_size, imgsz, rect
+    and workers shape the loader `run` builds when `dataloader` is None.
     save_txt/save_conf: per-image prediction txt in save_dir/labels; they and
     save_json and callbacks read file names from `dataloader.dataset.im_files`.
     half: the BN-folded bf16 model. nms_fn: the greedy suppression,
@@ -94,11 +101,18 @@ def run(
         raise NotImplementedError("validator.run: a model other than yolov3_tpu_torch's DetectionModel "
                                   "(exported backends) is not ported yet (ROADMAP.md queue 1 item 10)")
     if dataloader is None:
-        raise NotImplementedError("validator.run: the dataset loader is not ported yet (ROADMAP.md queue 1 "
-                                  "item 9); pass dataloader=")
-    if data is not None and not isinstance(data, dict):
-        raise NotImplementedError("validator.run: dataset yaml files are read by the dataset loader, which is "
-                                  "not ported yet (ROADMAP.md queue 1 item 9); pass the dataset dict")
+        if data is None:
+            raise ValueError("validator.run needs `data` (a dataset YAML or dict) or a `dataloader`")
+        data = check_dataset(data)
+        names = names or data["names"]
+        dataset = DetectionDataset(
+            data.get(task) or data["val"], imgsz=imgsz, augment=False, rect=rect,
+            stride=int(max(model.spec.strides)), pad=0.5 if rect else 0.0, batch_size=batch_size,
+            num_cls=data["nc"], single_cls=single_cls,  # the dataset's classes; single_cls collapses them after
+        )
+        dataloader = DataLoader(dataset, batch_size=batch_size, shuffle=False, workers=workers)
+    elif data is not None and not isinstance(data, dict):
+        data = check_dataset(data)
     names = names or {i: str(i) for i in range(model.spec.nc)}
     nc = 1 if single_cls else model.spec.nc
     device = model.device

@@ -1,4 +1,4 @@
-"""Box geometry (yolov3_tpu/ops/boxes.py, the part the port calls).
+"""Box geometry (yolov3_tpu/ops/boxes.py).
 
 Each function takes numpy arrays (the validator's host loop) or torch
 tensors (the decode and the loss) and returns the same kind.
@@ -34,6 +34,34 @@ def xywh2xyxy(x):
     hh = x[..., 3] / 2
     out = xp.stack([x[..., 0] - hw, x[..., 1] - hh, x[..., 0] + hw, x[..., 1] + hh], -1)
     return xp.concatenate([out, x[..., 4:]], -1)
+
+
+def xywhn2xyxy(x, w=640, h=640, padw=0, padh=0):
+    """Normalized (cx,cy,w,h) -> pixel (x1,y1,x2,y2) with optional letterbox pad offsets."""
+    xp = _xp(x)
+    x1 = w * (x[..., 0] - x[..., 2] / 2) + padw
+    y1 = h * (x[..., 1] - x[..., 3] / 2) + padh
+    x2 = w * (x[..., 0] + x[..., 2] / 2) + padw
+    y2 = h * (x[..., 1] + x[..., 3] / 2) + padh
+    return xp.concatenate([xp.stack([x1, y1, x2, y2], -1), x[..., 4:]], -1)
+
+
+def xyxy2xywhn(x, w=640, h=640, clip=False, eps=0.0):
+    """Pixel (x1,y1,x2,y2) -> normalized (cx,cy,w,h), clipped to (w - eps, h - eps) first if asked."""
+    if clip:
+        x = clip_boxes(x, (h - eps, w - eps))
+    xp = _xp(x)
+    cx = ((x[..., 0] + x[..., 2]) / 2) / w
+    cy = ((x[..., 1] + x[..., 3]) / 2) / h
+    bw = (x[..., 2] - x[..., 0]) / w
+    bh = (x[..., 3] - x[..., 1]) / h
+    return xp.concatenate([xp.stack([cx, cy, bw, bh], -1), x[..., 4:]], -1)
+
+
+def xyn2xy(x, w=640, h=640, padw=0, padh=0):
+    """Normalized points (n,2) -> pixel points."""
+    xp = _xp(x)
+    return xp.stack([w * x[..., 0] + padw, h * x[..., 1] + padh], -1)
 
 
 def clip_boxes(boxes, shape):
@@ -107,3 +135,21 @@ def bbox_iou(box1, box2, xywh=True, GIoU=False, DIoU=False, CIoU=False, eps=1e-7
         return iou - rho2 / c2
     c_area = cw * ch + eps
     return iou - (c_area - union) / c_area
+
+
+def wh_iou(wh1, wh2, eps=1e-7):
+    """IoU of width-height pairs of co-centred boxes: (n,2) x (m,2) -> (n,m)."""
+    xp = _xp(wh1)
+    inter = xp.minimum(wh1[:, None, 0], wh2[None, :, 0]) * xp.minimum(wh1[:, None, 1], wh2[None, :, 1])
+    return inter / (wh1[:, 0:1] * wh1[:, 1:2] + (wh2[:, 0] * wh2[:, 1])[None] - inter + eps)
+
+
+def bbox_ioa(box1, box2, eps=1e-7):
+    """Intersection over box2's area: (n,4) x (m,4) xyxy -> (n,m)."""
+    xp = _xp(box1)
+    lt = xp.maximum(box1[:, None, :2], box2[None, :, :2])
+    rb = xp.minimum(box1[:, None, 2:4], box2[None, :, 2:4])
+    wh = xp.clip(rb - lt, 0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    area2 = (box2[:, 2] - box2[:, 0]) * (box2[:, 3] - box2[:, 1])
+    return inter / (area2[None] + eps)

@@ -1,1 +1,1 @@
-"""Training: loss, optimizer and schedules, EMA, the train step (yolov3_tpu/train/)."""
+"""Training: loss, optimizer and schedules, EMA, the train step, the trainer loop (yolov3_tpu/train/)."""

@@ -1,16 +1,26 @@
-"""General helpers: logger, YAML loading, channel rounding, device choice,
-timer, COCO class ids (the parts of yolov3_tpu/utils/general.py the port
-needs, kept as its own copy)."""
+"""General helpers: logger, YAML files, seeds, run directories, channel
+rounding, device choice, timer, class weights, COCO class ids, git
+provenance (the parts of yolov3_tpu/utils/general.py the port needs, kept
+as its own copy)."""
 
 from __future__ import annotations
 
 import contextlib
 import logging
 import math
+import os
+import random
+import subprocess
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 import yaml
+
+ROOT = Path(__file__).resolve().parents[2]  # the repository
+# where a dataset YAML's relative `path` is resolved (the JAX package's default)
+DATASETS_DIR = Path(os.getenv("YOLOV3_TPU_DATASETS_DIR", ROOT.parent / "datasets"))
 
 
 def set_logging(name="yolov3_tpu_torch"):
@@ -28,10 +38,58 @@ def set_logging(name="yolov3_tpu_torch"):
 LOGGER = set_logging()
 
 
+def colorstr(*input):
+    """Colourise a string for the terminal, e.g. colorstr('blue', 'hello')."""
+    *args, string = input if len(input) > 1 else ("blue", "bold", input[0])
+    colors = {
+        "black": "\033[30m", "red": "\033[31m", "green": "\033[32m", "yellow": "\033[33m",
+        "blue": "\033[34m", "magenta": "\033[35m", "cyan": "\033[36m", "white": "\033[37m",
+        "bright_black": "\033[90m", "bright_red": "\033[91m", "bright_green": "\033[92m",
+        "bright_yellow": "\033[93m", "bright_blue": "\033[94m", "bright_magenta": "\033[95m",
+        "bright_cyan": "\033[96m", "bright_white": "\033[97m",
+        "end": "\033[0m", "bold": "\033[1m", "underline": "\033[4m",
+    }  # fmt: skip
+    return "".join(colors[x] for x in args) + f"{string}" + colors["end"]
+
+
 def yaml_load(file="data.yaml"):
     """Load a YAML file into a dict."""
     with open(file, errors="ignore") as f:
         return yaml.safe_load(f)
+
+
+def yaml_save(file="data.yaml", data=None):
+    """Save a dict to a YAML file, Paths as strings."""
+    with open(file, "w") as f:
+        yaml.safe_dump({k: str(v) if isinstance(v, Path) else v for k, v in (data or {}).items()}, f, sort_keys=False)
+
+
+def init_seeds(seed=0):
+    """The host random generators of one run, seeded with `seed`, and torch's.
+
+    Returns (random.Random(seed), np.random.RandomState(seed)). The JAX
+    package seeds the global `random` and `np.random` instead
+    (yolov3_tpu/utils/general.py init_seeds); these two replay the same
+    draws, so a caller that passes them where the JAX package reads the
+    globals, in the same order, gets the same numbers."""
+    torch.manual_seed(seed)
+    os.environ["PYTHONHASHSEED"] = str(seed)
+    return random.Random(seed), np.random.RandomState(seed)
+
+
+def increment_path(path, exist_ok=False, sep="", mkdir=False):
+    """Increment a run path, e.g. runs/exp -> runs/exp2, runs/exp3, ..."""
+    path = Path(path)
+    if path.exists() and not exist_ok:
+        path, suffix = (path.with_suffix(""), path.suffix) if path.is_file() else (path, "")
+        for n in range(2, 9999):
+            p = f"{path}{sep}{n}{suffix}"
+            if not os.path.exists(p):
+                break
+        path = Path(p)
+    if mkdir:
+        path.mkdir(parents=True, exist_ok=True)
+    return path
 
 
 def make_divisible(x, divisor):
@@ -81,3 +139,39 @@ def coco80_to_coco91_class():
         34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61,
         62, 63, 64, 65, 67, 70, 72, 73, 74, 75, 76, 77, 78, 79, 80, 81, 82, 84, 85, 86, 87, 88, 89, 90,
     ]  # fmt: skip
+
+
+def labels_to_class_weights(labels, nc=80):
+    """Inverse-frequency class weights from a list of (n,5) label arrays."""
+    if not len(labels):
+        return np.ones(nc) / nc
+    classes = np.concatenate([lb[:, 0] for lb in labels], 0).astype(int)
+    weights = np.bincount(classes, minlength=nc).astype(float)
+    weights[weights == 0] = 1
+    weights = 1 / weights
+    return weights / weights.sum()
+
+
+def labels_to_image_weights(labels, nc=80, class_weights=None):
+    """Per-image sampling weights from per-class weights (image-weighted training)."""
+    if class_weights is None:
+        class_weights = np.ones(nc)
+    counts = np.array([np.bincount(lb[:, 0].astype(int), minlength=nc) for lb in labels])
+    return (class_weights.reshape(1, nc) * counts).sum(1)
+
+
+def check_git_info(path="."):
+    """{remote, branch, commit} of a git repository, or Nones outside one (a checkpoint's provenance)."""
+
+    def _git(*args):
+        try:
+            r = subprocess.run(["git", "-C", str(path), *args], capture_output=True, text=True, timeout=5)
+            return r.stdout.strip() or None if r.returncode == 0 else None
+        except (OSError, subprocess.TimeoutExpired):
+            return None
+
+    return {
+        "remote": _git("config", "--get", "remote.origin.url"),
+        "branch": _git("rev-parse", "--abbrev-ref", "HEAD"),
+        "commit": _git("rev-parse", "--short", "HEAD"),
+    }
