@@ -25,19 +25,32 @@ Phases, each printing its result on its own line:
      fallback, launch counts of both kernels over that run, a profile of
      the served batch by kernel group, and the fast path's detections
      against the plain score and NMS functions;
-  6. the val path on the same model: eval.validator.run at the val-grade
+  6. the HTTP front end on that model, saved as a port checkpoint:
+     serve.make_server on a free port in a thread, 32 requests (npy through
+     RemoteModel and PNG bodies) of 4 frame sizes from 8 client threads,
+     each answer held to the in-process pipeline, K2 three launches and K1
+     one a device call, /health, 400 and 404, requests/s and latency, the
+     server shut down; then build_pipeline(fast=False) on 4 frames (K1 once
+     a call, no K2) against the plain NMS on the same f32 predictions;
+  7. the val path on the same model: eval.validator.run at the val-grade
      defaults (conf 0.001, iou 0.6, multi-label, max_det 300, max_nms 30000)
      over 32 640x640 frames and 8 512x640 rect frames, labelled with the f32
      val path's own detections above conf 0.25; f32 mAP50 >= 0.95, half=True
      beside it, one greedy-NMS launch a batch at K = 30000, detections and
      metrics equal to those through the plain NMS, a profile of one batch;
-  7. the train path: the same model in train mode, SGD with the default
+     then merge-NMS through K1 against the plain NMS on two val frames (one
+     inside merge's 3000-candidate gate, one outside), and
+     validator.run(save_hybrid=True) through K1 against the plain NMS;
+  8. the train path: the same model in train mode, SGD with the default
      hyper-parameters, 1 + 10 steps on one seeded batch of 8 640x640 images
      with 8 boxes each; finite falling loss, moved parameters, BatchNorm
      statistics and EMA, 33 launches of the conv+statistics kernel a step,
      one step with the kernel against one with its plain version from the
-     same state, a profile of a step by kernel group;
-  8. the trainer: a synthetic PNG dataset written to a temporary directory
+     same state, a profile of a step by kernel group; then the step with
+     remat off, whole-body and remat_until=7 from one state: peak memory,
+     ms per step, K3 launches per step, the same loss, grad norm and
+     BatchNorm statistics (updated once);
+  9. the trainer: a synthetic PNG dataset written to a temporary directory
      (64 train and 32 val images, 480-800 px a side), the train loader
      alone (mosaic at 640 px, batch 16, 8 threads), train.loop.train of
      full-width yolov3 (nc 5) for 2 epochs with scratch-low (33 K3 launches
@@ -59,6 +72,7 @@ the other measurements, the card's name and power limit, and, last,
 from __future__ import annotations
 
 import copy
+import io
 import json
 import subprocess
 import sys
@@ -603,10 +617,8 @@ def phase_val(rng, model):
     detections equal the plain NMS's on the same predictions."""
     from yolov3_tpu_torch.eval import validator
     from yolov3_tpu_torch.models.detect_head import decode_predictions
-    from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
     from yolov3_tpu_torch.ops.nms import batched_nms
     from yolov3_tpu_torch.ops.nms_cuda import greedy_nms, greedy_nms_plain
-    from yolov3_tpu_torch.ops.score_cuda import masked_scores
 
     t0 = time.perf_counter()
     batches = make_val_batches(rng, model)
@@ -619,12 +631,11 @@ def phase_val(rng, model):
     torch.cuda.synchronize()
 
     # --- the val path: every launch from here to the count read is the path's own
-    greedy_nms.launches = masked_scores.launches = conv3x3_bn_stats.launches = 0
+    reset_kernel_counts()
     t0 = time.perf_counter()
     results, _, speeds = validator.run(model=model, dataloader=batches)
     wall = time.perf_counter() - t0
-    launches = {"greedy_nms": greedy_nms.launches, "masked_scores": masked_scores.launches,
-                "conv3x3_bn_stats": conv3x3_bn_stats.launches}
+    launches = kernel_counts()
     route = greedy_nms.last_route
     # --- end of the val path
 
@@ -666,7 +677,372 @@ def phase_val(rng, model):
           f"metrics through the plain NMS equal", flush=True)
     out.update(launches=launches, route=route, n_labels=n_labels, n_images=n_imgs,
                profile=profile_val_batch(model, batches[0][0], kw))
-    return out
+    return out, batches
+
+
+# (h, w) of the HTTP phase's BGR frames: letterbox and scale_boxes run on all but the square one
+HTTP_SIZES = ((480, 640), (720, 1280), (640, 640), (375, 500))
+HTTP_REQUESTS, HTTP_CLIENTS = 32, 8
+
+
+def kernel_counts():
+    from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
+    from yolov3_tpu_torch.ops.score_cuda import masked_scores
+
+    return {"greedy_nms": greedy_nms.launches, "masked_scores": masked_scores.launches,
+            "conv3x3_bn_stats": conv3x3_bn_stats.launches}
+
+
+def reset_kernel_counts():
+    from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
+    from yolov3_tpu_torch.ops.score_cuda import masked_scores
+
+    greedy_nms.launches = masked_scores.launches = conv3x3_bn_stats.launches = 0
+
+
+def check_dets(got, want, label):
+    """n equal, boxes within 0.1 px, conf within 1e-3, classes equal; returns (box err, conf err)."""
+    check(got.shape == want.shape, f"{label}: {len(got)} detections, expected {len(want)}")
+    box_err = float(np.abs(got[:, :4] - want[:, :4]).max(initial=0.0))
+    conf_err = float(np.abs(got[:, 4] - want[:, 4]).max(initial=0.0))
+    check(box_err <= 0.1 and conf_err <= 1e-3 and np.array_equal(got[:, 5], want[:, 5]),
+          f"{label}: box err {box_err}, conf err {conf_err}, classes equal {np.array_equal(got[:, 5], want[:, 5])}")
+    return box_err, conf_err
+
+
+def phase_http(model, imgsz=640, device=None):
+    """The HTTP front end on the serving phase's planted model, saved as a port
+    checkpoint: make_server(port=0, max_batch=8, batch_wait_ms=5) in a thread,
+    HTTP_REQUESTS requests from HTTP_CLIENTS client threads (half npy through
+    RemoteModel, half PNG bodies) of distinct BGR frames of HTTP_SIZES. Each
+    answer is held to the in-process pipeline on the same frame, run in a
+    batch of the bucket size the server ran it in (a frame's result may
+    depend on the batch size through cuDNN's choice of algorithm; how often it
+    does is printed). Launch counts: K2 3 a device call, K1 one a device call
+    plus one a fallback. /health counts the requests; a malformed body gets
+    400, an unknown path 404; the server is shut down."""
+    import shutil
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+    from pathlib import Path
+
+    from yolov3_tpu_torch.data import image_ops
+    from yolov3_tpu_torch.data.augment import letterbox
+    from yolov3_tpu_torch.ops.boxes import scale_boxes
+    from yolov3_tpu_torch.serve import RemoteModel, build_batched_infer, make_server
+    from yolov3_tpu_torch.utils.checkpoint import save_checkpoint
+
+    rng = np.random.default_rng(6)  # a generator of its own (see make_val_batches' callers)
+    frames = [rng.integers(0, 256, size=(*HTTP_SIZES[i % len(HTTP_SIZES)], 3), dtype=np.uint8)
+              for i in range(HTTP_REQUESTS)]
+    # every other run of len(HTTP_SIZES) requests sends PNG bodies, so each size comes both ways
+    bodies = [image_ops.encode_png(f, level=1) if (i // len(HTTP_SIZES)) % 2 else None for i, f in enumerate(frames)]
+    boxed = [np.ascontiguousarray(letterbox(f, imgsz, auto=False)[0][:, :, ::-1]) for f in frames]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_http_"))
+    try:
+        save_checkpoint(tmp / "best", {"model": model.state_dict()}, spec=model.spec,
+                        meta={"names": {i: f"class{i}" for i in range(model.spec.nc)}})
+        t0 = time.perf_counter()
+        server = make_server(weights=str(tmp / "best"), host="127.0.0.1", port=0, imgsz=imgsz, max_batch=8,
+                             batch_wait_ms=5, fast=True, device=device)
+        setup_s = time.perf_counter() - t0
+        batcher = server.predict.batcher
+        buckets = {}  # letterboxed frame bytes -> the bucket sizes it was served in
+        real_infer = batcher.infer
+
+        def recording_infer(batch):
+            fallbacks = real_infer.fallbacks
+            out = real_infer(batch)
+            for im in batch:  # the bucket size, and whether the batch took the full-decode fallback
+                buckets.setdefault(im.tobytes(), set()).add((len(batch), real_infer.fallbacks > fallbacks))
+            return out
+
+        batcher.infer = recording_infer
+        thread = threading.Thread(target=server.serve_forever, daemon=True, name="chip_smoke_http")
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        remote = RemoteModel(url)
+        answers, latency = [None] * HTTP_REQUESTS, [0.0] * HTTP_REQUESTS
+
+        def post(path, body, content_type):
+            req = urllib.request.Request(f"{url}{path}", data=body, headers={"Content-Type": content_type})
+            try:
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    return r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+
+        def client(c):
+            for i in range(c, HTTP_REQUESTS, HTTP_CLIENTS):
+                t = time.perf_counter()
+                if bodies[i] is None:
+                    answers[i] = remote(frames[i])
+                else:
+                    status, out = post("/predict", bodies[i], "image/png")
+                    check(status == 200, f"PNG request {i}: HTTP {status} {out}")
+                    answers[i] = np.array(out["detections"], np.float32).reshape(-1, 6)
+                latency[i] = time.perf_counter() - t
+
+        calls0 = batcher.calls
+        # --- the HTTP path: every launch from here to the count read is the path's own
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(c,)) for c in range(HTTP_CLIENTS)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = kernel_counts()
+        # --- end of the HTTP path
+        check(not any(t.is_alive() for t in clients), "an HTTP client did not finish")
+        with urllib.request.urlopen(f"{url}/health", timeout=10) as r:
+            health = json.loads(r.read())
+        calls = health["batching"]["device_calls"] - calls0
+        fallbacks = real_infer.fallbacks
+        bad_status, bad = post("/predict", b"\x89PNG\r\n\x1a\n this is no image", "image/png")
+        missing_status, _ = post("/nowhere", b"", "image/png")
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        check(not thread.is_alive(), "the HTTP server did not shut down")
+
+        check(health["batching"]["requests"] == HTTP_REQUESTS and health["imgsz"] == imgsz
+              and health["names"]["1"] == "class1", f"/health {health}")
+        check(bad_status == 400 and "bad image payload" in bad["error"], f"a malformed body got {bad_status}")
+        check(missing_status == 404, f"an unknown path got {missing_status}")
+        check(launches == {"greedy_nms": calls + fallbacks, "masked_scores": 3 * calls, "conv3x3_bn_stats": 0},
+              f"HTTP launches {launches} for {calls} device calls and {fallbacks} fallbacks")
+
+        # each answer against the in-process pipeline on its frame, in a batch of the size it was served in
+        infer = build_batched_infer(server.model)
+        box_err = conf_err = 0.0
+        differ_at_batch_1, n_dets = 0, 0
+        for i, (frame, im) in enumerate(zip(frames, boxed)):
+            served = buckets.get(im.tobytes())
+            check(served is not None and len(served) == 1, f"frame {i} was served in {served}")
+            (bucket, fell_back), = served
+            refs = {}
+            for key in sorted({(bucket, fell_back), (1, False)}):
+                batch = np.stack([im] * key[0])
+                dets, n = infer.full_fn(batch) if key[1] else infer(batch)
+                d = dets[0, : int(n[0])].cpu().numpy().copy()
+                if len(d):
+                    d[:, :4] = scale_boxes((imgsz, imgsz), d[:, :4], frame.shape[:2])
+                refs[key] = d
+            want, at_1 = refs[(bucket, fell_back)], refs[(1, False)]
+            got = answers[i]
+            # JSON rounds to 4 places: compare the in-process rows rounded alike
+            e = check_dets(got, np.round(want, 4).astype(np.float32), f"HTTP answer {i} {frame.shape[:2]}")
+            box_err, conf_err = max(box_err, e[0]), max(conf_err, e[1])
+            n_dets += len(got)
+            differ_at_batch_1 += int(len(at_1) != len(want) or not np.array_equal(at_1, want))
+        check(n_dets > 0, "no HTTP answer held a detection")
+        # the host work of one request, one step at a time on this thread (ms by frame size)
+        host_ms = {}
+        for hw in HTTP_SIZES:
+            i = next(j for j in range(HTTP_REQUESTS) if bodies[j] is not None and frames[j].shape[:2] == hw)
+            buf = io.BytesIO()
+            np.save(buf, frames[i], allow_pickle=False)
+            answer = json.dumps({"detections": [[round(float(v), 4) for v in row] for row in answers[i]]})
+            steps = (("png decode", lambda: image_ops.imdecode(bodies[i])),
+                     ("npy load", lambda: np.load(io.BytesIO(buf.getvalue()), allow_pickle=False)),
+                     ("letterbox", lambda: letterbox(frames[i], imgsz, auto=False)),
+                     ("json", lambda: json.dumps({"detections": [[round(float(v), 4) for v in row]
+                                                                 for row in answers[i]]})))
+            row = {}
+            for name, fn in steps:
+                t = time.perf_counter()
+                for _ in range(3):
+                    fn()
+                row[name] = (time.perf_counter() - t) / 3 * 1e3
+            row.update(png_mb=len(bodies[i]) / 1e6, json_kb=len(answer) / 1e3)
+            host_ms[f"{hw[0]}x{hw[1]}"] = row
+        lat = np.sort(np.array(latency)) * 1e3
+        out = dict(requests=HTTP_REQUESTS, clients=HTTP_CLIENTS, wall_s=wall, req_s=HTTP_REQUESTS / wall,
+                   p50_ms=float(np.percentile(lat, 50)), p90_ms=float(np.percentile(lat, 90)),
+                   device_calls=calls, fallbacks=fallbacks, launches=launches, setup_s=setup_s,
+                   detections=n_dets, max_box_err=box_err, max_conf_err=conf_err,
+                   frames_differing_from_batch_1=differ_at_batch_1, host_ms=host_ms)
+        print(f"HTTP serving: {HTTP_REQUESTS} requests (half npy, half PNG; {len(HTTP_SIZES)} frame sizes) from "
+              f"{HTTP_CLIENTS} clients in {wall:.3f} s = {out['req_s']:.1f} requests/s, latency p50 "
+              f"{out['p50_ms']:.1f} ms p90 {out['p90_ms']:.1f} ms; {calls} device calls, {fallbacks} fallbacks, "
+              f"launches {launches}; server built and warmed in {setup_s:.2f} s", flush=True)
+        print(f"HTTP answers vs the in-process pipeline at the served bucket: n equal ({n_dets} detections), max "
+              f"box err {box_err:.3g} px, max conf err {conf_err:.3g}; {differ_at_batch_1} of {HTTP_REQUESTS} "
+              f"frames give other rows in a batch of 1; /health counts {HTTP_REQUESTS} requests, 400 and 404 "
+              f"answered, server shut down", flush=True)
+        print("HTTP host work of one request, ms on one thread: " + "; ".join(
+            f"{k}: " + ", ".join(f"{n} {v:.2f}" for n, v in r.items() if n not in ("png_mb", "json_kb"))
+            + f" (PNG {r['png_mb']:.2f} MB, JSON {r['json_kb']:.1f} kB)" for k, r in host_ms.items()), flush=True)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_fast_false(model, imgsz=640):
+    """build_pipeline(fast=False) on one frame of each HTTP size: one K1
+    launch a call and no K2; detections equal to the plain NMS over the same
+    float32 predictions."""
+    from yolov3_tpu_torch.data.augment import letterbox
+    from yolov3_tpu_torch.models.detect_head import decode_predictions
+    from yolov3_tpu_torch.ops.boxes import scale_boxes
+    from yolov3_tpu_torch.ops.nms import batched_nms
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms_plain
+    from yolov3_tpu_torch.serve import build_pipeline
+
+    rng = np.random.default_rng(7)
+    frames = [rng.integers(0, 256, size=(*hw, 3), dtype=np.uint8) for hw in HTTP_SIZES]
+    predict = build_pipeline(model, imgsz, max_batch=1, fast=False)
+    predict(frames[2])  # warm-up
+    torch.cuda.synchronize()
+    # --- the fast=False path: every launch from here to the count read is the path's own
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    results = [predict(f) for f in frames]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    # --- end of the fast=False path
+    check(launches == {"greedy_nms": len(frames), "masked_scores": 0, "conv3x3_bn_stats": 0},
+          f"fast=False launches {launches} for {len(frames)} calls")
+    box_err = conf_err = 0.0
+    for frame, got in zip(frames, results):
+        im = np.ascontiguousarray(letterbox(frame, imgsz, auto=False)[0][:, :, ::-1])
+        with torch.inference_mode():
+            x = torch.as_tensor(im[None], device=model.device).float() / 255.0
+            pred = decode_predictions(model(x), model.anchors_px, model.spec.strides)
+            dets, n = batched_nms(pred, max_nms=8192, nms_fn=greedy_nms_plain)
+        want = dets[0, : int(n[0])].cpu().numpy()
+        if len(want):
+            want[:, :4] = scale_boxes((imgsz, imgsz), want[:, :4], frame.shape[:2])
+        e = check_dets(got, want, f"fast=False {frame.shape[:2]}")
+        box_err, conf_err = max(box_err, e[0]), max(conf_err, e[1])
+    n_dets = sum(len(r) for r in results)
+    check(n_dets > 0, "fast=False found no detection")
+    print(f"fast=False: {len(frames)} frames {[f.shape[:2] for f in frames]} in {wall * 1e3:.1f} ms "
+          f"({wall / len(frames) * 1e3:.1f} ms a frame), launches {launches}; {n_dets} detections equal to the "
+          f"plain NMS on the same f32 predictions (max box err {box_err:.3g}, conf err {conf_err:.3g})", flush=True)
+    return dict(launches=launches, ms_per_frame=wall / len(frames) * 1e3, detections=n_dets)
+
+
+def phase_merge(model, imgs, iou_thres=0.45, max_nms=30000):
+    """batched_nms(merge=True), multi-label and class-agnostic, through K1
+    against the plain NMS on a pair of val frames: the conf threshold is
+    chosen from the frames' own candidate counts so that one image has fewer
+    than 3000 candidates (inside merge's gate: boxes merged, the redundant
+    filter applied) and the other 3000 or more (outside it: plain greedy
+    rows). Agnostic, because the planted head makes every class of a cell a
+    candidate: a kept box then overlaps its own cell's other classes and its
+    neighbours, so rows survive the redundant filter and move."""
+    from yolov3_tpu_torch.models.detect_head import decode_predictions
+    from yolov3_tpu_torch.ops.nms import batched_nms
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms_plain
+
+    with torch.inference_mode():
+        x = torch.as_tensor(imgs, device=model.device).float() / 255.0
+        pred = decode_predictions(model(x), model.anchors_px, model.spec.strides)
+    # a (box, class) pair is a candidate above conf c iff min(obj * cls, obj) > c: t_i, the 3000th
+    # largest of those per image, is where image i crosses the gate; a c between the lowest and the
+    # highest t_i leaves the first image under 3000 candidates and the second at 3000 or more
+    obj = pred[..., 4:5]
+    v = torch.minimum(pred[..., 5:] * obj, obj).reshape(pred.shape[0], -1)
+    t = v.topk(3000, dim=1).values[:, -1].cpu().numpy()
+    lo, hi = int(t.argmin()), int(t.argmax())
+    check(t[lo] < t[hi], f"every frame crosses merge's 3000-candidate gate at conf {t[lo]}")
+    conf = float((t[lo] + t[hi]) / 2)
+    n_lo, n_hi = (int(min((v[i] > conf).sum(), max_nms)) for i in (lo, hi))
+    check(1 < n_lo < 3000 <= n_hi, f"candidates {n_lo} and {n_hi} at conf {conf}")
+    pair = pred[[lo, hi]]
+    kw = dict(conf_thres=conf, iou_thres=iou_thres, multi_label=True, agnostic=True, max_nms=max_nms)
+    batched_nms(pair, merge=True, **kw)  # warm-up
+    torch.cuda.synchronize()
+    # --- the merge path: every launch from here to the count read is the path's own
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    dets_k, n_k = batched_nms(pair, merge=True, **kw)
+    torch.cuda.synchronize()
+    merge_ms = (time.perf_counter() - t0) * 1e3
+    launches = kernel_counts()
+    # --- end of the merge path
+    dets_p, n_p = batched_nms(pair, merge=True, nms_fn=greedy_nms_plain, **kw)
+    plain, plain_n = batched_nms(pair, **kw)
+    n_k, n_p, plain_n = (t.cpu().numpy() for t in (n_k, n_p, plain_n))
+    check(launches == {"greedy_nms": 1, "masked_scores": 0, "conv3x3_bn_stats": 0}, f"merge launches {launches}")
+    check((n_k == n_p).all(), f"merge n through K1 {n_k.tolist()} != plain {n_p.tolist()}")
+    box_err = conf_err = 0.0
+    for b in range(2):
+        e = check_dets(dets_k[b, : n_k[b]].cpu().numpy(), dets_p[b, : n_p[b]].cpu().numpy(), f"merge image {b}")
+        box_err, conf_err = max(box_err, e[0]), max(conf_err, e[1])
+    check(n_k[0] > 0, "merge kept no row of the image inside the gate")
+    moved = float((dets_k[0, : n_k[0], :4] - plain[0, : n_k[0], :4]).abs().max())
+    check(n_k[1] == plain_n[1] and torch.equal(dets_k[1], plain[1]), "the image outside the gate was merged")
+    print(f"merge-NMS: conf {conf:.4g}, multi-label, agnostic, iou {iou_thres}: image {lo} with {n_lo} candidates "
+          f"(inside the gate: {n_k[0]} rows of {plain_n[0]} kept, boxes moved up to {moved:.3g} px) and image {hi} with "
+          f"{n_hi} (outside: {n_k[1]} plain rows); through K1 equal to the plain NMS (box err {box_err:.3g}, conf "
+          f"err {conf_err:.3g}); {merge_ms:.2f} ms, launches {launches}", flush=True)
+    return dict(conf=conf, candidates=(n_lo, n_hi), rows=n_k.tolist(), greedy_rows=plain_n.tolist(),
+                ms=merge_ms, launches=launches)
+
+
+class ValBatches:
+    """An iterable of val batches with the file names the validator's callbacks read."""
+
+    def __init__(self, batches):
+        self.batches = batches
+        self.dataset = type("Names", (), {"im_files": [f"frame{i:03d}.png" for i in
+                                                       range(sum(b[0].shape[0] for b in batches))]})()
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def phase_save_hybrid(model, batches, map50_f32):
+    """validator.run(save_hybrid=True) on the val frames (f32): the labels join
+    the predictions as confidence-1 candidates before the host-facing NMS;
+    K1 once a batch; every image's detections equal to those through the
+    plain NMS; mAP50 beside the plain run's."""
+    from yolov3_tpu_torch.eval import validator
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms_plain
+
+    class Recorder:
+        def __init__(self):
+            self.preds = {}
+
+        def run(self, event, predn, path, **_):
+            self.preds[path] = np.array(predn)
+
+    data = ValBatches(batches)
+    rec, rec_plain = Recorder(), Recorder()
+    # --- the save_hybrid path: every launch from here to the count read is the path's own
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    results, _, _ = validator.run(model=model, dataloader=data, save_hybrid=True, callbacks=rec)
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    # --- end of the save_hybrid path
+    results_plain, _, _ = validator.run(model=model, dataloader=data, save_hybrid=True, callbacks=rec_plain,
+                                        nms_fn=greedy_nms_plain)
+    check(launches == {"greedy_nms": len(batches), "masked_scores": 0, "conv3x3_bn_stats": 0},
+          f"save_hybrid launches {launches} for {len(batches)} batches")
+    check(sorted(rec.preds) == sorted(rec_plain.preds) == sorted(data.dataset.im_files), "images seen differ")
+    n_dets = 0
+    for path, got in rec.preds.items():
+        check(np.array_equal(got, rec_plain.preds[path]),
+              f"save_hybrid detections of {path} differ from the plain NMS's")
+        n_dets += len(got)
+    check(np.array_equal(np.array(results[:4]), np.array(results_plain[:4])), "save_hybrid metrics differ")
+    map50 = float(results[2])
+    check(map50 >= 0.99, f"save_hybrid mAP50 {map50}: every label is a confidence-1 detection")
+    print(f"save_hybrid: mAP50 {map50:.4f} mAP50-95 {float(results[3]):.4f} (f32 run without it: mAP50 "
+          f"{map50_f32:.4f}); {n_dets} detections through K1 equal to the plain NMS's; {wall:.2f} s for "
+          f"{len(data.dataset.im_files)} images, launches {launches}", flush=True)
+    return dict(map50=map50, map=float(results[3]), detections=n_dets, s=wall, launches=launches)
 
 
 K3_KERNELS = ("conv3x3_stats", "bn_stats_finalize")  # the conv kernel and its fixed-order stats reduction
@@ -974,6 +1350,85 @@ def phase_train(rng, model, bs=8, imgsz=640, steps=10, convs_per_step=33):
     return launches, out
 
 
+REMAT_VARIANTS = (("off", {}), ("whole-body", dict(remat=True)), ("until-7", dict(remat=True, remat_until=7)))
+
+
+def phase_remat(bs=8, imgsz=640, steps=3):
+    """The train step at batch 8 from one state three ways: remat off,
+    whole-body remat (segments of 6 layers) and remat_until=7. Per variant:
+    peak device memory over its steps, ms per step, K3 launches per step
+    (33 plus one per stride-1 3x3 conv of the recomputed layers). The first
+    step of each holds remat on to remat off: loss within 1e-5 relative,
+    every BatchNorm running statistic within 1e-6 and num_batches_tracked
+    equal (updated once), grad norm within 1e-3 relative."""
+    from yolov3_tpu_torch.models.detection import DetectionModel
+    from yolov3_tpu_torch.nn.modules import Conv
+    from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
+    from yolov3_tpu_torch.train.loss import LossConfig
+    from yolov3_tpu_torch.train.optim import build_optimizer
+    from yolov3_tpu_torch.train.step import make_train_step
+
+    model = DetectionModel.from_config("yolov3", seed=0)
+    hyp = {"warmup_epochs": 0.0}
+    loss_cfg = LossConfig.from_model(model.spec, hyp)
+    batch = tuple(torch.as_tensor(a, device=model.device)
+                  for a in make_train_batch(np.random.default_rng(8), bs, imgsz, nc=model.spec.nc))
+    start = copy.deepcopy(model.state_dict())
+    routed = [int(n.split(".")[1]) for n, m in model.named_modules() if isinstance(m, Conv) and m.stats_route]
+    check(len(routed) == YOLOV3_K3_CONVS, f"{len(routed)} routed convs")
+    stat_keys = [k for k in start if "running_" in k or k.endswith("num_batches_tracked")]
+    out = {}
+    for label, kw in REMAT_VARIANTS:
+        model.load_state_dict(start)
+        optimizer, _, _ = build_optimizer("sgd", model, hyp, epochs=300, steps_per_epoch=1000, batch_size=64,
+                                          min_warmup_steps=0)
+        step = make_train_step(model, loss_cfg, optimizer, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # --- the remat path: every launch from here to the count read is the path's own
+        reset_kernel_counts()
+        first = step(*batch)
+        torch.cuda.synchronize()
+        stats = {k: model.state_dict()[k].clone() for k in stat_keys}
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(*batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / steps * 1e3
+        launches = conv3x3_bn_stats.launches
+        # --- end of the remat path
+        recomputed = len(routed) if kw.get("remat_until", -1) < 0 else sum(i < kw["remat_until"] for i in routed)
+        expected = (len(routed) + (recomputed if kw else 0)) * (steps + 1)
+        check(launches == expected, f"remat {label}: {launches} K3 launches in {steps + 1} steps, expected {expected}")
+        out[label] = dict(loss=float(first["loss"]), grad_norm=float(first["grad_norm"]), stats=stats,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9, step_ms=step_ms,
+                          k3_per_step=launches // (steps + 1))
+        del step, optimizer
+    base = out["off"]
+    for label, _ in REMAT_VARIANTS[1:]:
+        r = out[label]
+        loss_gap = abs(r["loss"] - base["loss"]) / abs(base["loss"])
+        norm_gap = abs(r["grad_norm"] - base["grad_norm"]) / abs(base["grad_norm"])
+        stat_gap = max(float((r["stats"][k].double() - base["stats"][k].double()).abs().max()) for k in stat_keys)
+        check(loss_gap <= 1e-5, f"remat {label}: loss {r['loss']} vs {base['loss']} (rel gap {loss_gap})")
+        check(norm_gap <= 1e-3,
+              f"remat {label}: grad norm {r['grad_norm']} vs {base['grad_norm']} (rel gap {norm_gap})")
+        check(stat_gap <= 1e-6, f"remat {label}: a BatchNorm statistic differs by {stat_gap}")
+        check(all(int(r["stats"][k]) == 1 for k in stat_keys if k.endswith("num_batches_tracked")),
+              f"remat {label}: num_batches_tracked advanced more than once")
+        r.update(loss_rel_gap=loss_gap, grad_norm_rel_gap=norm_gap, bn_stat_max_gap=stat_gap)
+    for label, r in out.items():
+        del r["stats"]
+        print(f"remat {label}: peak memory {r['peak_gb']:.3f} GB, {r['step_ms']:.2f} ms/step over {steps} steps "
+              f"(batch {bs} at {imgsz} px), K3 launches {r['k3_per_step']} a step; first step loss {r['loss']:.6f}, "
+              f"grad norm {r['grad_norm']:.5f}"
+              + ("" if label == "off" else f"; against remat off: loss rel gap {r['loss_rel_gap']:.3g}, grad norm "
+                 f"rel gap {r['grad_norm_rel_gap']:.3g}, BatchNorm statistics max gap {r['bn_stat_max_gap']:.3g}, "
+                 "num_batches_tracked 1"), flush=True)
+    return out
+
+
 TRAINER_IMAGES = (64, 32)  # synthetic PNG images in the train and val splits
 TRAINER_IMGSZ = 640
 TRAINER_BS = 16
@@ -1269,9 +1724,14 @@ def main(argv=()):
     check(model.num_params() == 61949149, f"yolov3 has {model.num_params()} parameters")
     conv_rows = phase_conv_bn()
     launches, e2e = phase_main_path(rng, model)
-    val = phase_val(rng, model)
-    del model  # its head carries the planted detections; the trainer starts from the seeded init
+    http = phase_http(model)
+    fast_false = phase_fast_false(model)
+    val, val_batches = phase_val(rng, model)
+    merge = phase_merge(model, val_batches[0][0][:8])
+    hybrid = phase_save_hybrid(model, val_batches, val["f32"]["map50"])
+    del model, val_batches  # its head carries the planted detections; the trainer starts from the seeded init
     launches["conv3x3_bn_stats"], train = phase_train(rng, DetectionModel.from_config("yolov3", seed=0))
+    remat = phase_remat()
     trainer_launches, trainer = phase_trainer()
 
     serving = nms_rows["serving"]
@@ -1282,21 +1742,27 @@ def main(argv=()):
              plain_ms=serving["plain_ms"], bound_ms=serving["bound_ms"], bound_by=serving["bound_by"],
              library_ms=None, latency_bound_ms=serving["latency_bound_ms"],
              val_launches=val["launches"]["greedy_nms"], trainer_launches=trainer_launches["greedy_nms"],
-             trainer_serve_launches=trainer["serve_launches"]["greedy_nms"]),
+             trainer_serve_launches=trainer["serve_launches"]["greedy_nms"],
+             http_launches=http["launches"]["greedy_nms"], fast_false_launches=fast_false["launches"]["greedy_nms"],
+             merge_launches=merge["launches"]["greedy_nms"], save_hybrid_launches=hybrid["launches"]["greedy_nms"]),
         dict(name="masked_scores", route="cuda", source="yolov3_tpu_torch/csrc/score.cu",
              replaces="yolov3_tpu/ops/score_pallas.py:43", launches=launches["masked_scores"],
              max_abs_err=score["max_abs_err"], ms=score["ms"], plain_ms=score["plain_ms"],
              bound_ms=score["bound_ms"], bound_by=score["bound_by"], library_ms=None,
-             trainer_serve_launches=trainer["serve_launches"]["masked_scores"]),
+             trainer_serve_launches=trainer["serve_launches"]["masked_scores"],
+             http_launches=http["launches"]["masked_scores"],
+             fast_false_launches=fast_false["launches"]["masked_scores"]),
         dict(name="conv3x3_bn_stats", route="cuda", source="yolov3_tpu_torch/csrc/conv_bn.cu",
              replaces="yolov3_tpu/ops/conv_bn_pallas.py:33", launches=launches["conv3x3_bn_stats"],
              **{k: conv_rows[K3_MAIN_SHAPE][k]
                 for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-             trainer_launches=trainer_launches["conv3x3_bn_stats"]),
+             trainer_launches=trainer_launches["conv3x3_bn_stats"],
+             remat_launches_per_step={k: v["k3_per_step"] for k, v in remat.items()}),
     ]
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"nms_shapes": nms_rows, "conv_bn_shapes": conv_rows, "main_path": e2e, "val": val,
-                      "train": train, "trainer": trainer}))
+    print(json.dumps({"nms_shapes": nms_rows, "conv_bn_shapes": conv_rows, "main_path": e2e, "http": http,
+                      "fast_false": fast_false, "val": val, "merge": merge, "save_hybrid": hybrid, "train": train,
+                      "remat": remat, "trainer": trainer}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

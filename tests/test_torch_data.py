@@ -197,6 +197,34 @@ def test_label_cache_and_corrupt_files(dataset_dir, tmp_path, monkeypatch):
     assert again.im_files == pds.im_files
 
 
+@pytest.mark.parametrize("fault", ["truncated", "crc", "no-iend"])
+def test_damaged_png_is_dropped_like_jax(dataset_dir, tmp_path, fault):
+    """A PNG cut at half its bytes, one with a flipped bit inside IDAT (a bad
+    CRC) and one cut just before IEND: both packages' verify_image_label drop
+    each, and the datasets keep the same files."""
+    images = fresh_copy(dataset_dir, tmp_path / "d")
+    data = bytearray((images / "00003.png").read_bytes())
+    if fault == "truncated":
+        data = data[: len(data) // 2]
+    elif fault == "crc":
+        data[60] ^= 1  # inside the first IDAT chunk's data: its CRC no longer matches
+    else:
+        data = data[:-12]  # the IEND chunk is gone
+    (images / "zz_damaged.png").write_bytes(bytes(data))
+    shutil.copy(images.parent.parent / "labels/train/00003.txt", images.parent.parent / "labels/train/zz_damaged.txt")
+    lb_file = str(images.parent.parent / "labels/train/zz_damaged.txt")
+    got, want = (mod.verify_image_label(str(images / "zz_damaged.png"), lb_file, 5)
+                 for mod in (datasets, jax_datasets))
+    assert got[0] is None and want[0] is None and got[2] and want[2]
+    assert "zz_damaged.png" in got[2]
+    assert datasets.verify_image_label(str(images / "00003.png"), lb_file, 5)[2] is None
+    pds = datasets.DetectionDataset(str(images), imgsz=IMGSZ, num_cls=5)
+    for f in images.parent.parent.rglob("*.cache.npz"):
+        f.unlink()
+    jds = jax_datasets.DetectionDataset(str(images), imgsz=IMGSZ, num_cls=5)
+    assert pds.im_files == jds.im_files and len(pds) == 12
+
+
 def test_ram_and_disk_image_cache(dataset_dir, tmp_path):
     images = fresh_copy(dataset_dir, tmp_path / "d")
     plain = datasets.DetectionDataset(str(images), imgsz=IMGSZ, num_cls=5)
@@ -224,7 +252,7 @@ def test_check_dataset(dataset_dir, tmp_path):
 def test_shard_per_host_is_not_ported(dataset_dir):
     loader = datasets.DataLoader(datasets.DetectionDataset(str(dataset_dir / "images/train"), imgsz=IMGSZ,
                                                            num_cls=5))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         loader.shard_per_host()
 
 

@@ -17,7 +17,8 @@ FORBIDDEN = {"jax", "flax", "optax", "yolov3_tpu"}
 TRAIN_MODULES = ("train/__init__.py", "train/loss.py", "train/optim.py", "train/step.py", "ops/conv_bn_cuda.py",
                  "train/loop.py", "data/__init__.py", "data/augment.py", "data/datasets.py", "data/dataset_yaml.py",
                  "data/image_ops.py", "data/synthetic.py", "ops/host_build.py", "utils/autoanchor.py",
-                 "utils/autobatch.py", "utils/callbacks.py", "utils/checkpoint.py", "utils/loggers/__init__.py")
+                 "utils/autobatch.py", "utils/callbacks.py", "utils/checkpoint.py", "utils/loggers/__init__.py",
+                 "train/evolve.py", "serve.py", "ops/nms.py")
 IMAGE_LIBRARIES = {"cv2", "PIL"}
 
 
@@ -69,7 +70,7 @@ def test_train_import_loads_no_jax():
 
 def test_trainer_import_loads_no_jax_cv2_or_pil():
     modules = ("yolov3_tpu_torch.train.loop, yolov3_tpu_torch.data.datasets, yolov3_tpu_torch.data.synthetic, "
-               "yolov3_tpu_torch.utils.autobatch")
+               "yolov3_tpu_torch.utils.autobatch, yolov3_tpu_torch.train.evolve, yolov3_tpu_torch.serve")
     _assert_import_loads_no_jax(modules)
     code = (f"import sys, {modules}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('cv2', 'PIL')); assert not bad, bad")

@@ -146,8 +146,3 @@ def test_batched_nms_matches_jax(kw):
         np.testing.assert_allclose(out[b, :k, :4].numpy(), ref_out[b, :k, :4], atol=0.1)
         np.testing.assert_allclose(out[b, :k, 4].numpy(), ref_out[b, :k, 4], atol=1e-3)
         np.testing.assert_array_equal(out[b, :k, 5].numpy(), ref_out[b, :k, 5])
-
-
-def test_merge_not_ported():
-    with pytest.raises(NotImplementedError):
-        batched_nms(torch.zeros(1, 4, 7), merge=True)

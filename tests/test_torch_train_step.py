@@ -225,7 +225,7 @@ def test_init_train_state():
     assert init_train_state(model, optimizer).balance is None
 
 
-@pytest.mark.parametrize("missing", ["mesh", "remat"])
+@pytest.mark.parametrize("missing", ["mesh"])
 def test_unported_arguments_are_rejected(missing):
     model = DetectionModel.from_config(SPEC, seed=0, device="cpu")
     optimizer, _, _ = build_optimizer("sgd", model, HYP, **OPT_ARGS)

@@ -12,6 +12,8 @@
    with the port's own detections above conf 0.25. Metrics within 0.005
    (ROADMAP.md's mAP bar), per-image detections n equal, boxes atol 0.1,
    conf atol 1e-3, losses rtol 2e-3.
+   `save_hybrid=True` (labels injected before the host NMS) is held the
+   same way.
 3. Every argument of the JAX `run` that the port does not take yet raises
    NotImplementedError.
 """
@@ -391,19 +393,46 @@ def test_val_speed_task_uses_benchmark_settings(val_runs):
     assert len(calls) == 3 and all(iou == 0.45 and (s is None or s > 0.25) for s, iou in calls)
 
 
+def test_val_save_hybrid_matches_jax(val_runs):
+    """save_hybrid=True: the labels join each batch's predictions as
+    confidence-1 candidates before the host NMS, in both packages. Metrics
+    within 0.005, per-image detections n equal / boxes 0.1 / conf 1e-3, no
+    losses; with every label a detection of confidence 1, mAP50 is 1."""
+    out = {}
+    runs = (("jax", jax_validator.run, val_runs["jax_model"]), ("port", validator.run, val_runs["model"]))
+    for label, run, m in runs:
+        rec = Recorder()
+        results, maps, _ = run(val_runs["data"], model=m, batch_size=2, imgsz=IMGSZ, dataloader=val_runs["batches"],
+                               save_hybrid=True, callbacks=rec)
+        out[label] = (np.array(results, np.float64), maps, rec.preds)
+    (got, got_maps, got_preds), (want, want_maps, want_preds) = out["port"], out["jax"]
+    np.testing.assert_allclose(got[:4], want[:4], rtol=0, atol=0.005)
+    np.testing.assert_allclose(got_maps, want_maps, rtol=0, atol=0.005)
+    assert (got[4:] == 0).all() and got[2] > 0.99
+    assert sorted(got_preds) == sorted(want_preds) and len(want_preds) == 5
+    for stem, w in want_preds.items():
+        g = got_preds[stem]
+        assert len(g) == len(w), stem
+        np.testing.assert_allclose(g[:, :4], w[:, :4], atol=0.1, err_msg=stem)
+        np.testing.assert_allclose(g[:, 4], w[:, 4], atol=1e-3, err_msg=stem)
+        np.testing.assert_array_equal(g[:, 5], w[:, 5], err_msg=stem)
+    # the injected labels are among the detections: more rows at confidence 1 than without them
+    plain = val_runs["port"]["preds"]
+    assert sum((g[:, 4] == 1.0).sum() for g in got_preds.values()) > sum((g[:, 4] == 1.0).sum() for g in plain.values())
+
+
 # --- 3. what is not ported yet raises -----------------------------------------
 
 
 @pytest.mark.parametrize("kwargs,error,match", [
-    (dict(augment=True), NotImplementedError, "item 10"),
-    (dict(plots=True), NotImplementedError, "item 10"),
-    (dict(save_hybrid=True), NotImplementedError, "item 5"),
-    (dict(sharded=True), NotImplementedError, "item 11"),
+    (dict(augment=True), NotImplementedError, "item 5"),
+    (dict(plots=True), NotImplementedError, "item 5"),
+    (dict(sharded=True), NotImplementedError, "item 8"),
     # item 9 is ported: without a dataloader `run` reads `data` (a dataset YAML or dict) and raises
     # what reading it raises; tests/test_torch_trainer.py holds the loader it builds to the JAX one's
     (dict(dataloader=None), ValueError, "needs `data`"),
     (dict(data="coco128.yaml"), FileNotFoundError, "coco128.yaml"),
-], ids=["augment", "plots", "save_hybrid", "sharded", "no-dataloader", "yaml-data"])
+], ids=["augment", "plots", "sharded", "no-dataloader", "yaml-data"])
 def test_unported_arguments_raise(kwargs, error, match):
     model = DetectionModel(parse_spec(narrow_cfg())).eval()
     call = dict(model=model, dataloader=[])
@@ -413,5 +442,5 @@ def test_unported_arguments_raise(kwargs, error, match):
 
 
 def test_non_native_model_raises():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         validator.run(model=object(), dataloader=[])

@@ -19,7 +19,7 @@ def check_dataset(data):
     absolute train/val/test paths, a names {id: name} map and nc."""
     if isinstance(data, str) and data.startswith("clearml://"):
         raise NotImplementedError("clearml:// datasets need the network and are not ported "
-                                  "(ROADMAP.md queue 1 item 10)")
+                                  "(ROADMAP.md queue 1 item 7)")
     if isinstance(data, (str, Path)):
         data = yaml_load(data)
     data = dict(data)

@@ -91,9 +91,15 @@ def _require(cond, msg):
 
 def verify_image_label(im_file, lb_file, num_cls):
     """Validate one image/label pair; returns (labels (n,5), shape (w,h), msg|None).
-    The image's size comes from its header (image_ops.image_size)."""
+    The image's size comes from its header (image_ops.image_size); a PNG's
+    chunk stream is walked through IEND with every CRC checked
+    (image_ops.verify_png), so a truncated or corrupted PNG is dropped."""
     try:
         shape = tuple(int(v) for v in image_ops.image_size(im_file))  # (w, h)
+        with open(im_file, "rb") as f:
+            head = f.read(8)
+            if head == image_ops.PNG_SIGNATURE:
+                image_ops.verify_png(head + f.read())
         _require(shape[0] > 9 and shape[1] > 9, f"image size {shape} <10 pixels")
         lb = np.zeros((0, 5), dtype=np.float32)
         if os.path.isfile(lb_file):
@@ -473,7 +479,7 @@ class DataLoader:
         return (image_ops.resize_linear(sample[0], (ms, ms)), *sample[1:])
 
     def shard_per_host(self):
-        raise NotImplementedError("multi-host data sharding is not ported yet (ROADMAP.md queue 1 item 11)")
+        raise NotImplementedError("multi-host data sharding is not ported yet (ROADMAP.md queue 1 item 8)")
 
     def _batches(self):
         idx = self._indices_override

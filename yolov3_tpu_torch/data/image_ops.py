@@ -145,15 +145,21 @@ def imread(path):
     """Decode an image file to BGR uint8 (H, W, 3), as cv2.imread(path) does;
     raises when the file cannot be read."""
     path = str(path)
-    data = np.fromfile(path, np.uint8).tobytes()
+    return imdecode(np.fromfile(path, np.uint8).tobytes(), path)
+
+
+def imdecode(data, name="<bytes>"):
+    """Decode encoded image bytes to BGR uint8 (H, W, 3), as
+    cv2.imdecode(..., IMREAD_COLOR) does; `name` goes into the error raised
+    on bytes it cannot decode."""
     try:
         if data[:8] == PNG_SIGNATURE:
             return decode_png(data)
         if data[:2] == b"BM":
             return decode_bmp(data)
-        return _decode_with_library(data, path)
+        return _decode_with_library(data, name)
     except (ValueError, zlib.error, struct.error, IndexError) as e:
-        raise ValueError(f"cannot decode {path}: {e}") from e
+        raise ValueError(f"cannot decode {name}: {e}") from e
 
 
 def _decode_with_library(data, path):
@@ -187,6 +193,28 @@ def _png_chunks(data):
         pos += 12 + n
         if kind == b"IEND":
             return
+
+
+def verify_png(data):
+    """Walk a PNG's chunk stream through IEND and check every chunk's CRC32,
+    without inflating the image data (what PIL's `Image.verify()` checks).
+    Raises ValueError on a truncated stream or a bad checksum."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError("not a PNG file")
+    pos = 8
+    while True:
+        if pos + 8 > len(data):
+            raise ValueError("Truncated File Read")
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        end = pos + 12 + n
+        if end > len(data):
+            raise ValueError(f"truncated PNG file (chunk {kind!r})")
+        crc, = struct.unpack(">I", data[end - 4:end])
+        if zlib.crc32(data[pos + 4:end - 4]) != crc:
+            raise ValueError(f"broken PNG file (bad header checksum in {kind!r})")
+        if kind == b"IEND":
+            return
+        pos = end
 
 
 def decode_png(data):

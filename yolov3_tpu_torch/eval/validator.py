@@ -8,7 +8,10 @@ greedy suppression is the NMS kernel (csrc/nms.cu, at K = 30000 its
 global-memory form). Then the counts, and only the valid prefix of the
 detections, come to the host, where matching and AP run in numpy exactly as
 in the JAX package (process_batch at 10 IoUs 0.5:0.95, ap_per_class with
-101-point COCO integration).
+101-point COCO integration). With `save_hybrid=True` the forward only
+decodes, and each batch's labels join the predictions as candidates of
+confidence 1 before the host-facing `non_max_suppression` (still the NMS
+kernel on the card).
 
     from yolov3_tpu_torch.eval import validator
     (mp, mr, map50, map_, *losses), maps, speeds = validator.run(model=model, dataloader=batches)
@@ -36,16 +39,15 @@ from yolov3_tpu_torch.eval.metrics import ap_per_class, process_batch
 from yolov3_tpu_torch.models.detect_head import decode_predictions
 from yolov3_tpu_torch.models.detection import DetectionModel, cast_for_inference
 from yolov3_tpu_torch.ops.boxes import scale_boxes, xywh2xyxy, xyxy2xywh
-from yolov3_tpu_torch.ops.nms import batched_nms
+from yolov3_tpu_torch.ops.nms import batched_nms, non_max_suppression
 from yolov3_tpu_torch.train.loss import compute_loss
 from yolov3_tpu_torch.utils.general import LOGGER, Profile, coco80_to_coco91_class
 
 # arguments of the JAX `run` this port does not take yet, and the ROADMAP.md item that brings each
 NOT_PORTED = {
-    "augment": "test-time augmentation (ROADMAP.md queue 1 item 10)",
-    "plots": "plots (ROADMAP.md queue 1 item 10)",
-    "save_hybrid": "save_hybrid, which needs the host non_max_suppression (ROADMAP.md queue 1 item 5)",
-    "sharded": "sharded validation (ROADMAP.md queue 1 item 11)",
+    "augment": "test-time augmentation (ROADMAP.md queue 1 item 5)",
+    "plots": "plots (ROADMAP.md queue 1 item 5)",
+    "sharded": "sharded validation (ROADMAP.md queue 1 item 8)",
 }
 
 
@@ -89,17 +91,19 @@ def run(
     save_json and callbacks read file names from `dataloader.dataset.im_files`.
     half: the BN-folded bf16 model. nms_fn: the greedy suppression,
     `ops.nms_cuda.greedy_nms` (the kernel) by default.
-    `augment`, `plots`, `save_hybrid` and `sharded` raise NotImplementedError
-    when set (NOT_PORTED).
+    save_hybrid: hybrid autolabelling (reference val.py:374): the labels are
+    injected as detections of confidence 1; the losses are not computed.
+    `augment`, `plots` and `sharded` raise NotImplementedError when set
+    (NOT_PORTED).
 
     Returns ((mp, mr, map50, map, *losses), per_class_maps, speeds_ms).
     """
-    for name, value in dict(augment=augment, plots=plots, save_hybrid=save_hybrid, sharded=sharded).items():
+    for name, value in dict(augment=augment, plots=plots, sharded=sharded).items():
         if value:
             raise NotImplementedError(f"validator.run: {NOT_PORTED[name]} is not ported yet")
     if not isinstance(model, DetectionModel):
         raise NotImplementedError("validator.run: a model other than yolov3_tpu_torch's DetectionModel "
-                                  "(exported backends) is not ported yet (ROADMAP.md queue 1 item 10)")
+                                  "(exported backends) is not ported yet (ROADMAP.md queue 1 item 6)")
     if dataloader is None:
         if data is None:
             raise ValueError("validator.run needs `data` (a dataset YAML or dict) or a `dataloader`")
@@ -123,9 +127,9 @@ def run(
     if task == "speed":  # benchmark settings (reference val.py:605-609)
         conf_thres, save_json = 0.25, False
     nms_iou = 0.45 if task == "speed" else iou_thres
-    with_loss = bool(compute_loss_flag and loss_cfg is not None)
+    with_loss = bool(compute_loss_flag and loss_cfg is not None and not save_hybrid)
     forward = make_forward(model, conf_thres, nms_iou, max_det, max_nms, loss_cfg=loss_cfg if with_loss else None,
-                           half=half, nms_fn=nms_fn)
+                           half=half, nms_fn=nms_fn, decode_only=save_hybrid)
 
     stats = []
     loss_sum = np.zeros(3)
@@ -143,11 +147,23 @@ def run(
         with dt[0]:
             imgs_dev = torch.as_tensor(imgs).to(device)
         with dt[1]:
-            if with_loss:
+            if save_hybrid:  # apriori label injection -> host-facing NMS (reference val.py:374)
+                hb, wb = imgs.shape[1:3]
+                gain = np.array([wb, hb, wb, hb], np.float32)
+                lb = [np.concatenate([t[:, 0:1], t[:, 1:5] * gain], 1) if len(t) else np.zeros((0, 5), np.float32)
+                      for t in (targets[si][mask[si]] for si in range(imgs.shape[0]))]
+                dets_list = non_max_suppression(forward(imgs_dev), conf_thres, nms_iou, multi_label=True, labels=lb,
+                                                max_det=max_det, max_nms=max_nms, device=device, nms_fn=nms_fn)
+                n_valid = np.array([len(d) for d in dets_list])
+                dets = np.zeros((imgs.shape[0], max_det, 6), np.float32)
+                for si, d in enumerate(dets_list):
+                    dets[si, : len(d)] = d
+            elif with_loss:
                 dets, n_valid, comps = forward(imgs_dev, targets, mask)
+                dets, n_valid = _fetch_valid(dets, n_valid, max_det)
             else:
                 dets, n_valid = forward(imgs_dev)
-            dets, n_valid = _fetch_valid(dets, n_valid, max_det)
+                dets, n_valid = _fetch_valid(dets, n_valid, max_det)
         if with_loss:
             loss_sum += comps.cpu().numpy()
             n_batches += 1
@@ -238,14 +254,15 @@ def run(
 
 
 def make_forward(model, conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30000, loss_cfg=None, half=False,
-                 nms_fn=None):
+                 nms_fn=None, decode_only=False):
     """The per-batch device program of `run` (the JAX package's
     `_cached_forward`): uint8 (B, H, W, 3) images on the model's device ->
     (dets (B, max_det, 6), n (B,)), plus the loss components (3,) when
     `loss_cfg` is given (called with targets and mask then).
 
     The float32 eval forward, or with half=True the BN-folded bf16 model;
-    `decode_predictions`; multi-label `batched_nms` through `nms_fn`."""
+    `decode_predictions`; multi-label `batched_nms` through `nms_fn`.
+    decode_only: return the decoded predictions (B, N, 5+nc) and stop there."""
     if half:
         fused = model.fuse()  # a new model, unless `model` is fused already
         net = cast_for_inference(fused if fused is not model else copy.deepcopy(model))
@@ -260,6 +277,8 @@ def make_forward(model, conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30
         try:
             feats = net(torch.as_tensor(imgs_u8, device=model.device).float() / 255.0)
             pred = decode_predictions(feats, anchors, strides)
+            if decode_only:
+                return pred
             dets, n_valid = batched_nms(pred, conf_thres=conf_thres, iou_thres=iou_thres, multi_label=True,
                                         max_det=max_det, max_nms=max_nms, nms_fn=nms_fn)
             if loss_cfg is None:

@@ -9,16 +9,25 @@ yolov3_tpu/models/convert.py:torch_key_to_path.
   params/l{i}_{r}/cv1/...  (repeats)    model.{i}.{r}.cv1...
   params/l{last}/m{k}/{kernel,bias}     model.{last}.m.{k}.{weight,bias}
 
-Training state (yolov3_tpu/train/step.py's state pytree, SGD) is carried
-across the same way: `from_jax_train_state` flattens it to
+Training state (yolov3_tpu/train/step.py's state pytree) is carried across
+the same way: `from_jax_train_state` flattens it to
 
-  model/<key>       params and batch_stats, as above
-  momentum/<key>    opt "mu" (same tree as params) -> SGD momentum_buffer
-  ema/<key>         ema/ema/{params,batch_stats}
-  ema/updates, optimizer/updates, step, balance
+  model/<key>        params and batch_stats, as above
+  <slot>/<key>       the optimizer's per-parameter state (same tree as params):
+                       SGD      opt "mu"                  -> momentum/ (momentum_buffer)
+                       Adam(W)  ScaleByAdamState mu / nu  -> exp_avg/ / exp_avg_sq/
+                       RMSprop  ScaleByRmsState nu        -> square_avg/
+                                TraceState trace          -> momentum/ (momentum_buffer)
+  optimizer/updates  the optimizer's update count (SGD "step", Adam "count",
+                     RMSprop the schedule's count): torch's per-parameter "step"
+  ema/<key>          ema/ema/{params,batch_stats}
+  ema/updates, step, balance
 
 `flatten_train_state` gives the port's TrainState under the same keys, and
-`load_jax_train_state` loads the JAX state into a TrainState.
+`load_jax_train_state` loads the JAX state into a TrainState;
+`from_jax_opt_state` / `flatten_optimizer` / `load_jax_opt_state` do the
+same for an optimizer alone. RMSprop's eps stays a stated difference: torch
+adds it to the root of the second moment, optax under the root.
 """
 
 from __future__ import annotations
@@ -88,61 +97,126 @@ def load_jax_variables(model, variables):
     return model
 
 
-def _find_sgd_state(node):
-    """The {"mu", "step"} dict of the JAX package's SGD inside an optax state
-    (nested tuples of chain / masked / MultiSteps states), or None."""
-    if isinstance(node, dict) or hasattr(node, "items"):
-        return node if "mu" in node else None
-    if isinstance(node, (tuple, list)):
-        for child in node:
-            found = _find_sgd_state(child)
-            if found is not None:
-                return found
+# torch slot of each optax per-parameter state, by optimizer
+SLOTS = {"sgd": {"momentum": "momentum_buffer"},
+         "adam": {"exp_avg": "exp_avg", "exp_avg_sq": "exp_avg_sq"},
+         "rmsprop": {"square_avg": "square_avg", "momentum": "momentum_buffer"}}
+
+
+def _find(node, match):
+    """The first node of an optax state (nested tuples, named tuples and
+    dicts) for which match(node) holds, or None."""
+    if match(node):
+        return node
+    children = node.values() if hasattr(node, "items") else node if isinstance(node, (tuple, list)) else ()
+    for child in children:
+        found = _find(child, match)
+        if found is not None:
+            return found
     return None
 
 
-def from_jax_train_state(state):
-    """JAX train state (SGD) -> flat {key: f32 CPU tensor or int}; see the module docstring."""
-    sgd = _find_sgd_state(state["opt"])
-    if sgd is None:
-        raise NotImplementedError("only the SGD optimizer state (its 'mu' tree) is carried across")
-    mini_step = getattr(state["opt"], "mini_step", None)
+def _named(name):
+    return lambda node: type(node).__name__ == name
+
+
+def from_jax_opt_state(opt):
+    """An optax state of the JAX package's `build_optimizer` -> (kind, {<slot>/<key>:
+    f32 CPU tensor}, update count); kind is "sgd", "adam" (Adam and AdamW) or
+    "rmsprop"."""
+    mini_step = getattr(opt, "mini_step", None)
     if mini_step is not None and int(mini_step) != 0:
         raise NotImplementedError("a state in the middle of a gradient accumulation is not carried across")
+    sgd = _find(opt, lambda node: hasattr(node, "items") and "mu" in node)
+    adam = _find(opt, _named("ScaleByAdamState"))
+    rms = _find(opt, _named("ScaleByRmsState"))
+    if sgd is not None:
+        kind, trees, updates = "sgd", {"momentum": sgd["mu"]}, sgd["step"]
+    elif adam is not None:
+        kind, trees, updates = "adam", {"exp_avg": adam.mu, "exp_avg_sq": adam.nu}, adam.count
+    elif rms is not None:
+        trace = _find(opt, _named("TraceState"))
+        kind, trees = "rmsprop", {"square_avg": rms.nu, "momentum": trace.trace}
+        updates = _find(opt, _named("ScaleByScheduleState")).count
+    else:
+        raise NotImplementedError("only the SGD, Adam, AdamW and RMSprop optimizer states are carried across")
+    flat = {}
+    for slot, tree in trees.items():
+        flat.update({f"{slot}/{k}": v for k, v in _collection_to_state_dict("params", tree).items()})
+    return kind, flat, int(updates)
+
+
+def optimizer_kind(optimizer):
+    """"sgd", "adam" or "rmsprop" for a ScheduledOptimizer's torch optimizer."""
+    kind = {"SGD": "sgd", "Adam": "adam", "AdamW": "adam", "RMSprop": "rmsprop"}.get(
+        type(optimizer.optimizer).__name__)
+    if kind is None:
+        raise NotImplementedError(f"no JAX state layout for {type(optimizer.optimizer).__name__}")
+    return kind
+
+
+def _param_states(optimizer, named_params):
+    """{parameter name: (parameter, its optimizer state dict)} over the optimizer's groups."""
+    opt = optimizer.optimizer
+    grouped = {id(p) for g in opt.param_groups for p in g["params"]}
+    return {k: (p, opt.state[p]) for k, p in named_params if id(p) in grouped}
+
+
+def flatten_optimizer(optimizer, named_params):
+    """A ScheduledOptimizer's state under `from_jax_opt_state`'s keys, plus
+    optimizer/updates. A slot that no step has made yet counts as zeros, as
+    the JAX state starts; frozen parameters have none."""
+    flat = {}
+    for k, (p, st) in _param_states(optimizer, named_params).items():
+        for slot, torch_slot in SLOTS[optimizer_kind(optimizer)].items():
+            v = st.get(torch_slot)
+            flat[f"{slot}/{k}"] = torch.zeros_like(p) if v is None else v.detach()
+    flat["optimizer/updates"] = optimizer.updates
+    return flat
+
+
+@torch.no_grad()
+def load_jax_opt_state(optimizer, named_params, opt):
+    """Load an optax state into a ScheduledOptimizer of the same kind, in place."""
+    kind, flat, updates = from_jax_opt_state(opt)
+    if kind != optimizer_kind(optimizer):
+        raise ValueError(f"a JAX {kind} state cannot be loaded into {type(optimizer.optimizer).__name__}")
+    for k, (p, st) in _param_states(optimizer, named_params).items():
+        for slot, torch_slot in SLOTS[kind].items():
+            st[torch_slot] = flat[f"{slot}/{k}"].to(device=p.device, dtype=p.dtype)
+        if kind != "sgd":  # torch's own step count (Adam's bias correction), a CPU scalar
+            st["step"] = torch.tensor(float(updates), dtype=torch.float32)
+    optimizer.updates = updates
+    optimizer.micro = 0
+    return optimizer
+
+
+def from_jax_train_state(state):
+    """JAX train state -> flat {key: f32 CPU tensor or int}; see the module docstring."""
+    _, opt_flat, updates = from_jax_opt_state(state["opt"])
     flat = {f"model/{k}": v for k, v in from_jax_variables(state).items()}
-    flat.update({f"momentum/{k}": v for k, v in _collection_to_state_dict("params", sgd["mu"]).items()})
+    flat.update(opt_flat)
     flat.update({f"ema/{k}": v for k, v in from_jax_variables(state["ema"]["ema"]).items()})
     flat["ema/updates"] = int(state["ema"]["updates"])
-    flat["optimizer/updates"] = int(sgd["step"])
+    flat["optimizer/updates"] = updates
     flat["step"] = int(state["step"])
     if "balance" in state:
         flat["balance"] = torch.tensor(np.asarray(state["balance"], dtype=np.float32))
     return flat
 
 
-def _momentum_buffers(train_state):
-    """{parameter name: (parameter, its SGD state dict)} over the optimizer's groups."""
-    opt = train_state.optimizer.optimizer
-    grouped = {id(p) for g in opt.param_groups for p in g["params"]}
-    return {k: (p, opt.state[p]) for k, p in train_state.model.named_parameters() if id(p) in grouped}
-
-
 def flatten_train_state(train_state):
     """The port's TrainState under `from_jax_train_state`'s keys (detached
-    tensors on their device). A momentum buffer that no step has made yet
-    counts as zeros, as the JAX state starts; frozen parameters have none."""
+    tensors on their device)."""
     flat = {}
     for k, v in train_state.model.state_dict().items():
         if not k.endswith("num_batches_tracked"):
             flat[f"model/{k}"] = v.detach()
-    for k, (p, st) in _momentum_buffers(train_state).items():
-        buf = st.get("momentum_buffer")
-        flat[f"momentum/{k}"] = torch.zeros_like(p) if buf is None else buf.detach()
+    flat.update(flatten_optimizer(train_state.optimizer, train_state.model.named_parameters()))
     for k, v in train_state.ema.ema.items():
         if v.is_floating_point():
             flat[f"ema/{k}"] = v
     flat["ema/updates"] = train_state.ema.updates
-    flat["optimizer/updates"] = train_state.optimizer.updates
     flat["step"] = train_state.step
     if train_state.balance is not None:
         flat["balance"] = train_state.balance
@@ -151,17 +225,14 @@ def flatten_train_state(train_state):
 
 @torch.no_grad()
 def load_jax_train_state(train_state, state):
-    """Load a JAX train state (SGD) into the port's TrainState, in place."""
+    """Load a JAX train state into the port's TrainState, in place."""
     flat = from_jax_train_state(state)
     load_jax_variables(train_state.model, state)
-    for k, (p, st) in _momentum_buffers(train_state).items():
-        st["momentum_buffer"] = flat[f"momentum/{k}"].to(device=p.device, dtype=p.dtype)
+    load_jax_opt_state(train_state.optimizer, train_state.model.named_parameters(), state["opt"])
     for k, v in train_state.ema.ema.items():
         if v.is_floating_point():
             v.copy_(flat[f"ema/{k}"])
     train_state.ema.updates = flat["ema/updates"]
-    train_state.optimizer.updates = flat["optimizer/updates"]
-    train_state.optimizer.micro = 0
     train_state.step = flat["step"]
     if "balance" in flat:
         train_state.balance = flat["balance"].to(train_state.model.device)

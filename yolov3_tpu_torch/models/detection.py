@@ -4,22 +4,26 @@
 the module itself, or an `nn.Sequential` of its repeats, so state-dict keys
 are the reference's `model.{i}.…` / `model.{i}.{r}.…` and the Detect convs
 `model.{last}.m.{k}.…`. `forward` walks the layers like the JAX `YOLOGraph`:
-the save list keeps the outputs later layers route from.
+the save list keeps the outputs later layers route from. With `remat=True`
+the body runs in checkpointed segments (torch.utils.checkpoint), as the JAX
+`YOLOGraph(remat=True)` does with `nn.remat`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from yolov3_tpu_torch.models.detect_head import Detect, detect_bias
 from yolov3_tpu_torch.models.fuse import fuse_state_dict
 from yolov3_tpu_torch.models.spec import ModelSpec, parse_spec
 from yolov3_tpu_torch.nn import activations
-from yolov3_tpu_torch.nn.modules import CHANNEL_OPS, MODULE_REGISTRY, MULTI_INPUT_OPS, Conv
+from yolov3_tpu_torch.nn.modules import CHANNEL_OPS, MODULE_REGISTRY, MULTI_INPUT_OPS, Conv, recomputing
 from yolov3_tpu_torch.utils.general import select_device
 
 
@@ -96,25 +100,37 @@ class DetectionModel(nn.Module):
     def num_params(self):
         return sum(p.numel() for p in self.parameters())
 
-    def forward(self, x, raw=False):
+    def forward(self, x, raw=False, remat=False, remat_segment=6, remat_until=-1):
         """x: (B, H, W, C) NHWC images in [0, 1].
 
         raw=False: tuple of per-scale (B, na, ny, nx, no) maps, float32 in
         eval mode and in the compute dtype in train mode (the loss upcasts
         after its gather).
         raw=True: tuple of per-scale (B, ny, nx, na*no) maps in the model's
-        dtype, the serving layout `decode_topk_nhwc` reads."""
+        dtype, the serving layout `decode_topk_nhwc` reads.
+
+        remat=True (with autograd on): the body layers below `remat_until`
+        (-1: all of them) run in checkpointed segments of `remat_segment`
+        layers (yolov3_tpu/models/detection.py:147-169). The backward
+        recomputes one segment at a time, so only segment boundaries and the
+        routed outputs stay alive; the recompute runs under
+        `nn.modules.recomputing()`, so BatchNorm running statistics are
+        updated once. Layers from `remat_until` on run plain."""
         out = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        saved = {}
-        prev = -1
-        for ls, m in zip(self.spec.layers[:-1], self.model):
-            if ls.op in MULTI_INPUT_OPS:
-                out = m([out if j == prev else saved[j] for j in ls.f])
-            else:
-                out = m(out if ls.f[0] == prev else saved[ls.f[0]])
-            prev = ls.i
-            if ls.i in self.spec.save:
-                saved[ls.i] = out
+        body = list(zip(self.spec.layers[:-1], self.model))
+        saved, prev = {}, -1
+        cut = 0
+        if remat and torch.is_grad_enabled():
+            n = max(int(remat_segment), 1)
+            cut = len(body) if remat_until < 0 else min(int(remat_until), len(body))
+            for s in range(0, cut, n):
+                seg = body[s:min(s + n, cut)]
+                # nothing in the forward draws random numbers: no RNG state to keep for the recompute
+                out, saved = checkpoint(_run_layers, seg, out, saved, prev, self.spec.save, use_reentrant=False,
+                                        preserve_rng_state=False, context_fn=_recompute_context)
+                prev = seg[-1][0].i
+        out, saved = _run_layers(body[cut:], out, saved, prev, self.spec.save)
+        prev = self.spec.layers[-2].i
         detect = self.spec.layers[-1]
         return self.model[-1]([out if j == prev else saved[j] for j in detect.f], raw=raw)
 
@@ -136,6 +152,27 @@ class DetectionModel(nn.Module):
             fused = DetectionModel(self.spec, fused=True)
         fused.load_state_dict(sd, assign=True)
         return fused.eval()
+
+
+def _run_layers(layers, out, saved, prev, save):
+    """Run (layer spec, module) pairs from the output of layer `prev`; returns
+    the last output and a new dict of the outputs of the layers in `save`
+    (the dict given is left as it is: a checkpoint recompute runs again on
+    the same arguments)."""
+    saved = dict(saved)
+    for ls, m in layers:
+        if ls.op in MULTI_INPUT_OPS:
+            out = m([out if j == prev else saved[j] for j in ls.f])
+        else:
+            out = m(out if ls.f[0] == prev else saved[ls.f[0]])
+        prev = ls.i
+        if ls.i in save:
+            saved[ls.i] = out
+    return out, saved
+
+
+def _recompute_context():
+    return contextlib.nullcontext(), recomputing()
 
 
 def cast_for_inference(model: DetectionModel, dtype=torch.bfloat16) -> DetectionModel:

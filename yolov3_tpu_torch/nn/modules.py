@@ -11,6 +11,9 @@ variable tree.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -20,6 +23,28 @@ from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
 
 BN_EPS = 1e-3  # the JAX package's BatchNorm epsilon
 BN_MOMENTUM = 0.03  # torch convention of flax's decay 0.97
+
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The context of an activation-checkpoint recompute (models/detection.py):
+    train-mode convs normalise with their batch statistics as in the first
+    forward but leave the BatchNorm running statistics and counters alone,
+    so a recomputed segment updates them once, not twice (as Flax's
+    nn.remat does, where the update comes from the forward's output only).
+    Thread-local: autograd may run the recompute on its own thread."""
+    prev = getattr(_RECOMPUTE, "on", False)
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = prev
+
+
+def in_recompute():
+    return getattr(_RECOMPUTE, "on", False)
 
 
 def autopad(k, p=None, d=1):
@@ -60,7 +85,12 @@ class Conv(nn.Module):
         if self.stats_route and self.training:
             return self.act(self._conv_bn_train(x))
         x = self.conv(x)
-        if self.bn is not None:
+        if self.bn is not None and self.training and in_recompute():
+            # batch statistics as in the first forward; momentum 0 leaves the running
+            # statistics' values as they are and the counter is not advanced
+            bn = self.bn
+            x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, True, 0.0, bn.eps)
+        elif self.bn is not None:
             x = self.bn(x)
         return self.act(x)
 
@@ -72,6 +102,8 @@ class Conv(nn.Module):
         scale = bn.weight.float() * torch.rsqrt(var + bn.eps)
         shift = bn.bias.float() - mean * scale
         out = torch.addcmul(shift.to(y.dtype), y, scale.to(y.dtype))
+        if in_recompute():
+            return out.permute(0, 3, 1, 2)
         with torch.no_grad():
             n = y.numel() // y.shape[-1]
             m = bn.momentum

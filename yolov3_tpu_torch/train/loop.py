@@ -21,12 +21,13 @@ loader shuffles with np.random.default_rng(seed), as there. A resumed run's
 loader starts its shuffle from `seed` again: a resume restores the state
 exactly, not the data order an uninterrupted run would have seen.
 
-Not ported (each raises NotImplementedError): `remat` (activation
-rematerialisation, ROADMAP.md queue 1 item 9: recomputing a train-mode
-forward would update the BatchNorm statistics twice), `s2d_stem` (item 12),
-`sync_bn` and multi-process runs (item 11), `upload_dataset` and `entity`
-(item 10) and plots: `noplots` defaults to True here, and `noplots=False`
-raises (item 10).
+`remat=True` checkpoints the train step's forward in segments
+(train/step.py); the recompute updates no BatchNorm statistic.
+
+Not ported (each raises NotImplementedError): `s2d_stem` (ROADMAP.md queue
+1 item 9), `sync_bn` and multi-process runs (item 8), `upload_dataset` and
+`entity` (item 7) and plots: `noplots` defaults to True here, and
+`noplots=False` raises (item 5).
 """
 
 from __future__ import annotations
@@ -59,12 +60,11 @@ HYPS = Path(__file__).resolve().parents[1] / "data" / "hyps"
 
 
 def _refuse(**options):
-    items = {"remat": "activation rematerialisation (ROADMAP.md queue 1 item 9)",
-             "s2d_stem": "the space-to-depth stem (ROADMAP.md queue 1 item 12)",
-             "sync_bn": "SyncBatchNorm and multi-process training (ROADMAP.md queue 1 item 11)",
-             "upload_dataset": "dataset upload to W&B (ROADMAP.md queue 1 item 10)",
-             "entity": "the W&B entity (ROADMAP.md queue 1 item 10)",
-             "plots": "plots; pass noplots=True (ROADMAP.md queue 1 item 10)"}
+    items = {"s2d_stem": "the space-to-depth stem (ROADMAP.md queue 1 item 9)",
+             "sync_bn": "SyncBatchNorm and multi-process training (ROADMAP.md queue 1 item 8)",
+             "upload_dataset": "dataset upload to W&B (ROADMAP.md queue 1 item 7)",
+             "entity": "the W&B entity (ROADMAP.md queue 1 item 7)",
+             "plots": "plots; pass noplots=True (ROADMAP.md queue 1 item 5)"}
     for name, value in options.items():
         if value:
             raise NotImplementedError(f"train: {items[name]} is not ported yet")
@@ -127,13 +127,12 @@ def train(
     and raises without one; the CPU only when asked for). `bbox_interval`
     paces image logging, which is not ported, and is accepted unused.
     `half=None` means bf16 autocast on the card and float32 on the CPU.
-    `noplots` defaults to True because plots are not ported; `remat`,
-    `s2d_stem`, `sync_bn`, `upload_dataset`, `entity` and `noplots=False`
-    raise NotImplementedError (see the module docstring). `resume=True`
+    `noplots` defaults to True because plots are not ported; `s2d_stem`,
+    `sync_bn`, `upload_dataset`, `entity` and `noplots=False` raise
+    NotImplementedError (see the module docstring). `resume=True`
     continues the run in `save_dir` from weights/last, full or stripped.
     """
-    _refuse(remat=remat, s2d_stem=s2d_stem, sync_bn=sync_bn, upload_dataset=upload_dataset, entity=entity,
-            plots=not noplots)
+    _refuse(s2d_stem=s2d_stem, sync_bn=sync_bn, upload_dataset=upload_dataset, entity=entity, plots=not noplots)
     device = select_device(device)
     callbacks = callbacks or Callbacks()
     t_start = time.time()
@@ -230,7 +229,8 @@ def train(
     freeze_layers = list(range(freeze[0])) if len(freeze) == 1 else list(freeze)
     opt, schedules, _ = build_optimizer(optimizer, model, hyp, epochs, steps_per_epoch, batch_size, cos_lr=cos_lr,
                                         freeze=freeze_layers)
-    step_fn = make_train_step(model, loss_cfg, opt, loss_scale=4.0 if quad else 1.0, compute_dtype=compute_dtype)
+    step_fn = make_train_step(model, loss_cfg, opt, loss_scale=4.0 if quad else 1.0, compute_dtype=compute_dtype,
+                              remat=remat)
     state = step_fn.state
     if resume:
         sd, _ = load_checkpoint(wdir / "last")

@@ -12,8 +12,10 @@ gather; bf16 keeps f32's exponent range, so there is no GradScaler. In train
 mode the stride-1 3x3 convs take their BatchNorm statistics from
 `conv3x3_bn_stats` (nn/modules.py), on the card the kernel of csrc/conv_bn.cu.
 
-Not ported yet: the `mesh` argument (data-parallel sharding) and the `remat*`
-arguments (activation rematerialization) of the JAX `make_train_step`.
+`remat`, `remat_segment` and `remat_until` checkpoint the forward in
+segments (DetectionModel.forward), as the JAX step's do; the recomputed
+forward updates no BatchNorm statistic. Not ported yet: the `mesh`
+argument (data-parallel sharding, ROADMAP.md queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ def init_train_state(model, optimizer, loss_cfg: LossConfig | None = None) -> Tr
 
 def make_train_step(model, loss_cfg: LossConfig, optimizer, state: TrainState | None = None,
                     ema_decay=0.9999, loss_scale=1.0, compute_dtype=torch.bfloat16,
-                    bn_stats_fn=conv3x3_bn_stats):
+                    bn_stats_fn=conv3x3_bn_stats, remat=False, remat_segment=None, remat_until=None):
     """Build the train step over `state` (made by `init_train_state` when not given).
 
     Returns step_fn(imgs_u8, targets, mask) -> metrics, with `step_fn.state`
@@ -75,12 +77,20 @@ def make_train_step(model, loss_cfg: LossConfig, optimizer, state: TrainState | 
     `compute_dtype`: torch.bfloat16 (autocast) or torch.float32.
     `bn_stats_fn`: the conv+BN-statistics function of the train-mode convs:
     the kernel wrapper, or its plain version to compare the two.
+    `remat`: activation checkpointing of the forward in segments of
+    `remat_segment` layers (default 6), over the layers below `remat_until`
+    (default: the whole body); the backward recomputes each segment once,
+    which launches its conv+statistics kernels once more.
     """
     if state is None:
         state = init_train_state(model, optimizer, loss_cfg)
     autobalance = loss_cfg.autobalance
     ssi = loss_cfg.strides.index(16) if (autobalance and 16 in loss_cfg.strides) else 0
     autocast = compute_dtype != torch.float32
+    remat_kw = {}
+    if remat:
+        remat_kw = dict(remat=True, remat_segment=6 if remat_segment is None else int(remat_segment),
+                        remat_until=-1 if remat_until is None else int(remat_until))
 
     def step_fn(imgs, targets, mask):
         device = model.device
@@ -89,7 +99,7 @@ def make_train_step(model, loss_cfg: LossConfig, optimizer, state: TrainState | 
         imgs = torch.as_tensor(imgs, device=device)
         with record_function("train_step/forward"), \
                 torch.autocast(device.type, dtype=compute_dtype if autocast else None, enabled=autocast):
-            feats = model(normalize_images(imgs, compute_dtype))
+            feats = model(normalize_images(imgs, compute_dtype), **remat_kw)
         with record_function("train_step/loss"):
             loss, comps, obj_pl = compute_loss(feats, targets, mask, loss_cfg,
                                                balance=state.balance if autobalance else None,

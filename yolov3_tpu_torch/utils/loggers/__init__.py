@@ -2,7 +2,7 @@
 (yolov3_tpu/utils/loggers/__init__.py, the CSV sink only).
 
 The JAX package also fans out to TensorBoard, W&B, ClearML and Comet and
-draws plots; those sinks are not ported (ROADMAP.md queue 1 item 10).
+draws plots; those sinks are not ported (ROADMAP.md queue 1 items 7 and 5).
 """
 
 from __future__ import annotations
