@@ -50,7 +50,17 @@ Phases, each printing its result on its own line:
      remat off, whole-body and remat_until=7 from one state: peak memory,
      ms per step, K3 launches per step, the same loss, grad norm and
      BatchNorm statistics (updated once);
-  9. the trainer: a synthetic PNG dataset written to a temporary directory
+  9. detection from JPEGs on disk: every file of tests/data/jpeg and both
+     sample images decoded by the in-tree decoder to the SHA-256 of cv2's
+     decode pinned in digests.json (ms per megapixel); then cli.detect.run
+     at yolov3@640 (its own planted weights) from a port checkpoint, from
+     the same weights as a reference yolov3.pt (equal detections) and with
+     --augment, over those files: K1 once an image through its
+     shared-memory route, every image's detections equal to the plain NMS,
+     annotated PNGs, labels and crops; K1's device time at the detect shape;
+     hub.custom on the list of paths (one K1 launch); cli.val.run with both
+     weights as an Ensemble over a synthetic PNG dataset (K1 once a batch);
+ 10. the trainer: a synthetic PNG dataset written to a temporary directory
      (64 train and 32 val images, 480-800 px a side), the train loader
      alone (mosaic at 640 px, batch 16, 8 threads), train.loop.train of
      full-width yolov3 (nc 5) for 2 epochs with scratch-low (33 K3 launches
@@ -1648,6 +1658,315 @@ def phase_trainer():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --- detection from JPEGs on disk --------------------------------------------
+
+DETECT_IMGSZ = 640
+DETECT_TARGETS = (16.0, 4.0, 1.0)  # cells an image above conf 0.25 at strides 8, 16, 32
+DETECT_VAL_BATCH = 8
+
+
+def detect_sources():
+    """The package's two sample images and the JPEG corpus of tests/data/jpeg."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    return (sorted((root / "yolov3_tpu_torch/data/images").glob("*.jpg"))
+            + sorted((root / "tests/data/jpeg").glob("*.jpg")))
+
+
+def phase_jpeg(gpu):
+    """Decode both sample images and the corpus with the in-tree decoder; each
+    decode's SHA-256 must equal tests/data/jpeg/digests.json (cv2's decode,
+    pinned where cv2 is installed: this host has none). ms per megapixel over
+    the files, three decodes each."""
+    import hashlib
+    from pathlib import Path
+
+    from yolov3_tpu_torch.data import image_ops
+
+    digests = json.loads((Path(__file__).resolve().parent / "tests/data/jpeg/digests.json").read_text())
+    files = detect_sources()
+    check(len(files) == len(digests) and len(files) >= 14, f"{len(files)} JPEG files, {len(digests)} digests")
+    mp, secs = 0.0, 0.0
+    for p in files:
+        data = p.read_bytes()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            im = image_ops.decode_jpeg(data)
+        secs += (time.perf_counter() - t0) / 3
+        mp += im.shape[0] * im.shape[1] / 1e6
+        sha = hashlib.sha256(im.tobytes()).hexdigest()
+        check(sha == digests[p.name]["sha256"] and list(im.shape) == digests[p.name]["shape"],
+              f"JPEG {p.name}: the decode differs from cv2's pinned digest")
+    ms_per_mp = secs * 1e3 / mp
+    print(f"JPEG: {len(files)} files ({mp:.2f} MP) decode to cv2's pinned digests; {ms_per_mp:.2f} ms per megapixel "
+          f"on the host of {gpu}", flush=True)
+    return dict(files=len(files), megapixels=mp, ms_per_mp=ms_per_mp)
+
+
+def detect_val_ensemble(model, probe, weights, tmp, gpu, batch_size=DETECT_VAL_BATCH):
+    """cli.val.run with two weights (an Ensemble) over `probe` (N, S, S, 3 RGB
+    uint8, written as PNGs) labelled with the single `model`'s own detections
+    above conf 0.25 (f32, plain NMS): K1 once a batch, each batch's
+    detections equal to the plain NMS on the same Ensemble predictions, mAP50
+    at least 0.95 and within 0.01 of the single model's on the same frames."""
+    from yolov3_tpu_torch.cli import val as val_cli
+    from yolov3_tpu_torch.data import image_ops
+    from yolov3_tpu_torch.eval import validator
+    from yolov3_tpu_torch.ops.boxes import xyxy2xywh
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms_plain
+    from yolov3_tpu_torch.utils.general import yaml_save
+
+    imgsz = probe.shape[1]
+    label_fwd = validator.make_forward(model, nms_fn=greedy_nms_plain)
+    dets, n = label_fwd(torch.as_tensor(probe, device=model.device))
+    dets, n = dets.cpu().numpy(), n.cpu().numpy()
+    root = tmp / "selfval"
+    (root / "images" / "val").mkdir(parents=True)
+    (root / "labels" / "val").mkdir(parents=True)
+    targets, mask = np.zeros((len(probe), dets.shape[1], 5), np.float32), np.zeros((len(probe), dets.shape[1]), bool)
+    for i, (d, k) in enumerate(zip(dets, n)):
+        lb = d[:k][d[:k, 4] > 0.25]
+        xywh = xyxy2xywh(np.clip(lb[:, :4], 0, imgsz)) / imgsz
+        targets[i, :len(lb), 0], targets[i, :len(lb), 1:], mask[i, :len(lb)] = lb[:, 5], xywh, True
+        image_ops.imwrite_png(root / "images" / "val" / f"{i:03d}.png", np.ascontiguousarray(probe[i][:, :, ::-1]), 1)
+        (root / "labels" / "val" / f"{i:03d}.txt").write_text(
+            "".join(f"{int(c)} {x:.6f} {y:.6f} {w:.6f} {h:.6f}\n" for c, (x, y, w, h) in zip(lb[:, 5], xywh)))
+    n_labels = int(mask.sum())
+    check(n_labels > 0, "the detect model labels no detection above conf 0.25 on its own frames")
+    yaml_save(root / "dataset.yaml", dict(path=str(root), train="images/val", val="images/val",
+                                          names={i: str(i) for i in range(80)}))
+    meta = ((imgsz, imgsz), ((1.0, 1.0), (0.0, 0.0)))  # what the loader gives a square frame at imgsz: boxes clipped
+    single_batches = [(probe[i:i + batch_size], targets[i:i + batch_size], mask[i:i + batch_size],
+                       [meta] * len(probe[i:i + batch_size])) for i in range(0, len(probe), batch_size)]
+    single = validator.run(model=model, dataloader=single_batches)[0]
+
+    real_val_nms, val_seen = validator.batched_nms, []
+
+    def observed_val(pred, **kw):  # the Ensemble's call, kept with its inputs for the plain NMS after the run
+        out = real_val_nms(pred, **kw)
+        val_seen.append((pred, kw, out))
+        return out
+
+    validator.batched_nms = observed_val
+    try:
+        reset_kernel_counts()
+        results, _, speeds = val_cli.run(str(root / "dataset.yaml"), weights=[str(w) for w in weights],
+                                         batch_size=batch_size, imgsz=imgsz, workers=4, project=str(tmp / "val"),
+                                         device=str(model.device))
+        torch.cuda.synchronize()
+        val_launches = kernel_counts()["greedy_nms"]
+    finally:
+        validator.batched_nms = real_val_nms
+    n_batches = len(single_batches)
+    check(val_launches == n_batches and len(val_seen) == n_batches,
+          f"Ensemble val: {val_launches} K1 launches, {len(val_seen)} NMS calls for {n_batches} batches")
+    for i, (pred, kw, (vd, vn)) in enumerate(val_seen):
+        cells = 3 * sum((imgsz // st) ** 2 for st in (8, 16, 32))
+        check(pred.shape[1] == 2 * cells, f"Ensemble val batch {i}: {pred.shape[1]} predictions, not both members'")
+        with torch.inference_mode():
+            pd, pn = real_val_nms(pred, **{**kw, "nms_fn": greedy_nms_plain})
+        check(torch.equal(vn, pn) and torch.equal(vd, pd), f"Ensemble val batch {i}: K1's detections differ from "
+              f"the plain NMS's on the same predictions")
+    val_seen.clear()
+    check(single[2] >= 0.95, f"single-model mAP50 {single[2]} < 0.95 on its own labels")
+    check(abs(results[2] - single[2]) <= 0.01, f"Ensemble mAP50 {results[2]} vs single model {single[2]}")
+    print(f"cli.val Ensemble of 2 (checkpoint + .pt): {len(probe)} self-labelled images ({n_labels} labels), "
+          f"K1 launches {val_launches}, each batch equal to the plain NMS; mP {results[0]:.4f} mR {results[1]:.4f} "
+          f"mAP50 {results[2]:.4f} (single model {single[2]:.4f}); speeds {[round(v, 2) for v in speeds]} ms per "
+          f"image on {gpu}", flush=True)
+    return dict(results=[float(v) for v in results[:4]], single=[float(v) for v in single[:4]], labels=n_labels,
+                launches=val_launches, speeds_ms=[float(v) for v in speeds])
+
+
+def phase_detect(gpu):
+    """The detect user path at yolov3@640 (seeded weights, detections planted on
+    the head bias, calibrated on the detect images themselves) through K1:
+    cli.detect.run from a port checkpoint over the sample images and the JPEG
+    corpus (--save-txt --save-conf --save-crop), again from the same weights as
+    a reference-layout yolov3.pt (the detections equal), again with --augment;
+    hub.custom(checkpoint) on a list of paths; cli.val.run with both weights
+    (an Ensemble) over the detect images letterboxed to 640x640, written as
+    PNGs and labelled with the single model's own detections, its mAP50 held
+    near the single model's on the same frames. K1 once an image a detect run
+    (once a batch for AutoShape and val), at least one image through its
+    shared-memory route, every image's (every val batch's) detections equal
+    to the plain NMS on the same decoded predictions, annotated PNGs of the
+    sources' shapes, txt rows that parse; K1's device time at the detect
+    shape (B=1, K as measured, max_det 1000) beside the plain version and the
+    bound; the loader alone (JPEG decode + letterbox, which run outside the
+    detect CLI's Profiles) in ms an image."""
+    import tempfile
+    from pathlib import Path
+
+    import yolov3_tpu_torch.cli.detect as detect_cli
+    from yolov3_tpu_torch import hub
+    from yolov3_tpu_torch.data import image_ops
+    from yolov3_tpu_torch.data.augment import letterbox
+    from yolov3_tpu_torch.data.loaders import LoadImages
+    from yolov3_tpu_torch.models.detection import DetectionModel
+    from yolov3_tpu_torch.ops import nms as nms_ops
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms, greedy_nms_plain
+    from yolov3_tpu_torch.utils.checkpoint import save_checkpoint
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_detect_"))
+    files = detect_sources()
+    src = tmp / "images"
+    src.mkdir()
+    for p in files:
+        (src / p.name).write_bytes(p.read_bytes())
+    originals = {p.stem: image_ops.imread(p) for p in files}
+
+    model = DetectionModel.from_config("yolov3", seed=0)
+    base = [(conv.weight.detach().clone(), conv.bias.detach().clone()) for conv in model.model[-1].m]
+    probe = np.stack([letterbox(im, DETECT_IMGSZ, auto=False)[0][:, :, ::-1] for im in originals.values()])
+    gains, deltas = calibrate(model, np.ascontiguousarray(probe), targets=DETECT_TARGETS)
+    plant_detections(model, base, gains, deltas)
+    ckpt = save_checkpoint(tmp / "ckpt", {"model": model.state_dict()}, spec=model.spec)
+    pt = tmp / "w" / "yolov3.pt"
+    pt.parent.mkdir()
+    torch.save({"model": {k: v.detach().float().cpu() for k, v in model.state_dict().items()}}, pt)
+    del base
+
+    # the loader alone: JPEG decode + letterbox + HWC->CHW, the host work before detect's first Profile
+    for _ in LoadImages(str(src), img_size=DETECT_IMGSZ, stride=32, auto=False):
+        pass  # warm: the host library loads, the files are in the page cache
+    load_ms = {}
+    it = iter(LoadImages(str(src), img_size=DETECT_IMGSZ, stride=32, auto=False))
+    while True:
+        t0 = time.perf_counter()
+        item = next(it, None)
+        if item is None:
+            break
+        load_ms[Path(item[0]).stem] = (time.perf_counter() - t0) * 1e3
+    load_mean = sum(load_ms.values()) / len(load_ms)
+    split = dict(decode=0.0, letterbox=0.0, bgr2rgb=0.0)  # the steps of LoadImages.__next__, one by one
+    for p in sorted(src.iterdir()):
+        t0 = time.perf_counter()
+        im0 = image_ops.imread(p)
+        t1 = time.perf_counter()
+        im = letterbox(im0, DETECT_IMGSZ, stride=32, auto=False)[0]
+        t2 = time.perf_counter()
+        np.ascontiguousarray(im[:, :, ::-1])
+        t3 = time.perf_counter()
+        for k, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[k] += dt * 1e3 / len(load_ms)
+    print(f"detect loader alone (LoadImages: JPEG decode + letterbox, outside detect's Profiles): {load_mean:.3f} ms "
+          f"an image over {len(load_ms)} (decode {split['decode']:.3f}, letterbox {split['letterbox']:.3f}, BGR->RGB "
+          f"copy {split['bgr2rgb']:.3f}); sample1 {load_ms['sample1']:.3f} ms, sample2 {load_ms['sample2']:.3f} ms "
+          f"on the host of {gpu}", flush=True)
+
+    real_batched_nms = nms_ops.batched_nms
+    seen = []
+
+    def observed(pred, **kw):  # the CLI's call, kept with its inputs for the plain NMS after the run
+        out = real_batched_nms(pred, **kw)
+        seen.append((greedy_nms.last_route, pred, kw, out))
+        return out
+
+    detect_cli.batched_nms = observed
+    runs = {}
+    try:
+        for name, weights, extra in (("ckpt", ckpt, dict(save_txt=True, save_conf=True, save_crop=True)),
+                                     ("pt", pt, dict(save_txt=True, save_conf=True, nosave=True)),
+                                     ("tta", ckpt, dict(augment=True, nosave=True))):
+            seen.clear()
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            save_dir = detect_cli.run(weights=str(weights), source=str(src), imgsz=(DETECT_IMGSZ, DETECT_IMGSZ),
+                                      project=str(tmp / "runs"), name=name, exist_ok=True, **extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernel_counts()
+            check(launches["greedy_nms"] == len(files), f"detect {name}: {launches['greedy_nms']} K1 launches for "
+                  f"{len(files)} images")
+            routes = sorted({r for r, _, _, _ in seen})
+            check(any("shared memory" in r for r in routes), f"detect {name}: K1 routes {routes}")
+            n_dets = []
+            for i, (route, pred, kw, (dets, n)) in enumerate(seen):  # the plain NMS on the same predictions
+                with torch.inference_mode():
+                    pdets, pn = real_batched_nms(pred, **{**kw, "nms_fn": greedy_nms_plain})
+                check(torch.equal(n, pn), f"detect {name} image {i}: n {n.tolist()} vs plain {pn.tolist()}")
+                m = int(n[0])
+                check_dets(dets[0, :m].cpu().numpy(), pdets[0, :m].cpu().numpy(), f"detect {name} image {i}")
+                n_dets.append(m)
+            check(sum(n_dets) > 0, f"detect {name}: no detections")
+            runs[name] = dict(save_dir=Path(save_dir), launches=launches, routes=routes, n=n_dets,
+                              speed_ms=dict(detect_cli.run.speed_ms), wall_s=wall, candidates=seen[0][1].shape[1])
+            print(f"detect {name}: {len(files)} images at {DETECT_IMGSZ}, {sum(n_dets)} detections "
+                  f"({min(n_dets)}-{max(n_dets)} an image), K1 launches {launches['greedy_nms']} {routes}, equal to "
+                  f"the plain NMS; per image: "
+                  + ", ".join(f"{k} {v:.2f} ms" for k, v in runs[name]["speed_ms"].items())
+                  + f"; the run {wall:.2f} s (PNG, label and crop writes included) on {gpu}", flush=True)
+            seen.clear()
+    finally:
+        detect_cli.batched_nms = real_batched_nms
+
+    # outputs: annotated PNGs of the sources' shapes, parseable txt rows, crops; .pt equal to the checkpoint
+    ck, ptr = runs["ckpt"]["save_dir"], runs["pt"]["save_dir"]
+    for stem, im in originals.items():
+        check(image_ops.imread(ck / f"{stem}.png").shape == im.shape, f"annotated {stem}.png has another shape")
+    n_rows, pairs = 0, set()
+    for txt in sorted((ck / "labels").glob("*.txt")):
+        rows = np.loadtxt(txt, ndmin=2)
+        check(rows.shape[1] == 6 and ((rows[:, 1:5] >= 0) & (rows[:, 1:5] <= 1)).all()
+              and ((rows[:, 0] >= 0) & (rows[:, 0] < 80)).all(), f"{txt.name}: rows do not parse")
+        other = np.loadtxt(ptr / "labels" / txt.name, ndmin=2)
+        check(np.array_equal(rows, other), f"{txt.name}: the .pt run's rows differ from the checkpoint run's")
+        n_rows += len(rows)
+        pairs |= {(txt.stem, int(c)) for c in rows[:, 0]}
+    crops = len(list((ck / "crops").rglob("*.png")))  # one file an image and class, as the JAX package writes them
+    check(n_rows == sum(runs["ckpt"]["n"]) and crops == len(pairs), f"{n_rows} txt rows, {crops} crops, "
+          f"{sum(runs['ckpt']['n'])} detections, {len(pairs)} (image, class) pairs")
+
+    # K1 at the detect shape: the first image's candidates (B=1, K as the CLI gives it, max_det 1000)
+    captured = []
+
+    def capture(*args):
+        captured.append(args)
+        return greedy_nms(*args)
+
+    auto = hub.custom(str(ckpt))
+    x = torch.as_tensor(probe[:1]).cuda().float() / 255.0
+    with torch.inference_mode():
+        pred = auto.model.predict(x)
+        real_batched_nms(pred, conf_thres=0.25, iou_thres=0.45, max_det=1000, max_nms=8192, nms_fn=capture)
+    args = captured[0]
+    B, K = args[2].shape
+    out_k, n_k = greedy_nms(*args)
+    out_p, n_p = greedy_nms_plain(*args)
+    check(torch.equal(n_k, n_p) and torch.equal(out_k, out_p), "K1 at the detect shape differs from the plain version")
+    route = greedy_nms.last_route
+    k1_ms = device_ms(lambda: greedy_nms(*args), NMS_KERNEL)
+    k1_plain_ms = cuda_ms(lambda: greedy_nms_plain(*args), iters=3, warmup=1)
+    nbytes = B * K * 40 + B * 1000 * 24 + B * 4
+    ops = int(n_k.sum()) * K * NMS_OPS_PER_IOU
+    k1_bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    k1_bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
+    print(f"K1 greedy_nms detect: B={B} K={K} max_det=1000 [{route}] n={int(n_k[0])} equal to plain; kernel "
+          f"{k1_ms:.4f} ms device, plain {k1_plain_ms:.3f} ms, bound {k1_bound_ms:.5f} ms ({k1_bound_by}) on {gpu}",
+          flush=True)
+
+    # AutoShape on a list of paths: one batch, one K1 launch
+    reset_kernel_counts()
+    det = auto([str(p) for p in files], size=DETECT_IMGSZ)
+    torch.cuda.synchronize()
+    auto_launches = kernel_counts()["greedy_nms"]
+    check(auto_launches == 1 and det.n == len(files) and sum(len(p) for p in det.pred) > 0,
+          f"AutoShape: {auto_launches} K1 launches, {det.n} images")
+    print(f"AutoShape (hub.custom): {det.n} images in one batch, {sum(len(p) for p in det.pred)} detections, "
+          f"K1 launches {auto_launches}; {det.t[0]:.2f} ms pre, {det.t[1]:.2f} ms inference, {det.t[2]:.2f} ms post "
+          f"per image on {gpu}", flush=True)
+    del auto
+
+    val = detect_val_ensemble(model, probe, [ckpt, pt], tmp, gpu)
+    return dict(images=len(files), runs={k: {kk: vv for kk, vv in v.items() if kk != "save_dir"}
+                                         for k, v in runs.items()},
+                k1=dict(B=B, K=K, max_det=1000, route=route, n=int(n_k[0]), ms=k1_ms, plain_ms=k1_plain_ms,
+                        bound_ms=k1_bound_ms, bound_by=k1_bound_by),
+                autoshape_launches=auto_launches, val=val, load_ms=dict(mean=load_mean, **load_ms), load_split_ms=split)
+
+
 def phase_kernel_times(rng, tag):
     """K3 at yolov3's six shapes (batch 8, bf16, the weight as nn.modules.Conv
     hands it over), K1 at NMS_SHAPES and K2 at yolov3@640's three scales
@@ -1730,6 +2049,8 @@ def main(argv=()):
     merge = phase_merge(model, val_batches[0][0][:8])
     hybrid = phase_save_hybrid(model, val_batches, val["f32"]["map50"])
     del model, val_batches  # its head carries the planted detections; the trainer starts from the seeded init
+    jpeg = phase_jpeg(gpu)
+    detect = phase_detect(gpu)
     launches["conv3x3_bn_stats"], train = phase_train(rng, DetectionModel.from_config("yolov3", seed=0))
     remat = phase_remat()
     trainer_launches, trainer = phase_trainer()
@@ -1744,7 +2065,10 @@ def main(argv=()):
              val_launches=val["launches"]["greedy_nms"], trainer_launches=trainer_launches["greedy_nms"],
              trainer_serve_launches=trainer["serve_launches"]["greedy_nms"],
              http_launches=http["launches"]["greedy_nms"], fast_false_launches=fast_false["launches"]["greedy_nms"],
-             merge_launches=merge["launches"]["greedy_nms"], save_hybrid_launches=hybrid["launches"]["greedy_nms"]),
+             merge_launches=merge["launches"]["greedy_nms"], save_hybrid_launches=hybrid["launches"]["greedy_nms"],
+             detect_launches={k: v["launches"]["greedy_nms"] for k, v in detect["runs"].items()},
+             detect_autoshape_launches=detect["autoshape_launches"], detect_val_launches=detect["val"]["launches"],
+             detect_shape=detect["k1"]),
         dict(name="masked_scores", route="cuda", source="yolov3_tpu_torch/csrc/score.cu",
              replaces="yolov3_tpu/ops/score_pallas.py:43", launches=launches["masked_scores"],
              max_abs_err=score["max_abs_err"], ms=score["ms"], plain_ms=score["plain_ms"],
@@ -1762,7 +2086,7 @@ def main(argv=()):
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"nms_shapes": nms_rows, "conv_bn_shapes": conv_rows, "main_path": e2e, "http": http,
                       "fast_false": fast_false, "val": val, "merge": merge, "save_hybrid": hybrid, "train": train,
-                      "remat": remat, "trainer": trainer}))
+                      "remat": remat, "trainer": trainer, "jpeg": jpeg, "detect": detect}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -170,10 +170,15 @@ def test_image_size_from_headers(tmp_path):
 
 
 def test_jpeg_without_a_decoder_names_the_file(tmp_path, monkeypatch):
+    """Without cv2 and PIL a JPEG decodes in-tree (equal to cv2's decode); a
+    format that still needs a library (WebP here) raises, naming the file."""
     import builtins
 
     f = tmp_path / "photo.jpg"
-    cv2.imwrite(str(f), np.zeros((16, 16, 3), np.uint8))
+    cv2.imwrite(str(f), rand_image(np.random.default_rng(5), 16, 24))
+    want = cv2.imread(str(f))
+    g = tmp_path / "photo.webp"
+    cv2.imwrite(str(g), np.zeros((16, 16, 3), np.uint8))
     real_import = builtins.__import__
 
     def no_image_libraries(name, *args, **kwargs):
@@ -182,8 +187,9 @@ def test_jpeg_without_a_decoder_names_the_file(tmp_path, monkeypatch):
         return real_import(name, *args, **kwargs)
 
     monkeypatch.setattr(builtins, "__import__", no_image_libraries)
-    with pytest.raises(RuntimeError, match="photo.jpg.*convert the dataset's images to PNG"):
-        image_ops.imread(f)
+    np.testing.assert_array_equal(image_ops.imread(f), want)
+    with pytest.raises(RuntimeError, match="photo.webp.*convert the dataset's images to PNG"):
+        image_ops.imread(g)
 
 
 def test_corrupt_png_raises(tmp_path):

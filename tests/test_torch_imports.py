@@ -1,7 +1,8 @@
 """Import hygiene of the PyTorch port: it never imports JAX, flax, optax or
-the JAX package, nor OpenCV or Pillow at module level (a JPEG decoder
-imports one of them inside the function), and its entry points refuse to
-drop to the CPU on their own."""
+the JAX package, nor OpenCV or Pillow at module level (JPEG, PNG and BMP
+are decoded in-tree; other formats and video import one of them inside the
+function that reads them), and its entry points refuse to drop to the CPU
+on their own."""
 
 import ast
 import subprocess
@@ -20,6 +21,8 @@ TRAIN_MODULES = ("train/__init__.py", "train/loss.py", "train/optim.py", "train/
                  "utils/autobatch.py", "utils/callbacks.py", "utils/checkpoint.py", "utils/loggers/__init__.py",
                  "train/evolve.py", "serve.py", "ops/nms.py")
 IMAGE_LIBRARIES = {"cv2", "PIL"}
+DETECT_MODULES = ("data/loaders.py", "utils/plots.py", "models/loading.py", "models/ensemble.py",
+                  "models/autoshape.py", "hub.py", "cli/__init__.py", "cli/detect.py", "cli/val.py", "cli/train.py")
 
 
 def imported_roots(path):
@@ -50,6 +53,22 @@ def test_no_module_level_image_library_imports(path):
 def test_walk_covers_the_train_modules():
     walked = {str(p.relative_to(ROOT / "yolov3_tpu_torch")) for p in PORT_FILES[:-1]}
     assert set(TRAIN_MODULES) <= walked
+
+
+def test_walk_covers_the_detect_modules():
+    walked = {str(p.relative_to(ROOT / "yolov3_tpu_torch")) for p in PORT_FILES[:-1]}
+    assert set(DETECT_MODULES) <= walked
+
+
+def test_detect_import_loads_no_jax_cv2_or_pil():
+    modules = ", ".join("yolov3_tpu_torch." + m[:-3].replace("/", ".").replace(".__init__", "")
+                        for m in DETECT_MODULES)
+    _assert_import_loads_no_jax(modules)
+    code = (f"import sys, {modules}; "
+            "from yolov3_tpu_torch.data import image_ops; "
+            "image_ops.imread('yolov3_tpu_torch/data/images/sample1.jpg'); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('cv2', 'PIL')); assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
 def _assert_import_loads_no_jax(modules):

@@ -156,7 +156,8 @@ def test_full_path_alone_and_options(served):
         build_batched_infer(model, mesh=object())
     with pytest.raises(NotImplementedError, match="item 8"):
         build_pipeline(model, IMGSZ, shard=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # a reference .pt loads through models/loading.py; a missing one is never downloaded
+    with pytest.raises(FileNotFoundError, match="never downloaded"):
         make_server("yolov3.pt", device="cpu")
 
 
@@ -211,6 +212,10 @@ def test_http_round_trip(served):
 
         status, out = post(f"{url}/predict", b"certainly not an image", "image/png")
         assert status == 400 and "bad image payload" in out["error"]
+        # a JPEG header claiming 65535 x 65535 is refused before anything is allocated
+        sof = bytes.fromhex("ffd8ffc0000b08ffffffff01011100ffd9")
+        status, out = post(f"{url}/predict", sof, "image/jpeg")
+        assert status == 400 and "2^30 pixels" in out["error"]
         buf = __import__("io").BytesIO()
         np.save(buf, np.zeros((8, 8), np.uint8))
         assert post(f"{url}/predict", buf.getvalue(), "application/x-npy")[0] == 400

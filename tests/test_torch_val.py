@@ -425,7 +425,8 @@ def test_val_save_hybrid_matches_jax(val_runs):
 
 
 @pytest.mark.parametrize("kwargs,error,match", [
-    (dict(augment=True), NotImplementedError, "item 5"),
+    # augment (TTA) is ported (tests/test_torch_tta.py): accepted, the call goes on to need `data`
+    (dict(augment=True, dataloader=None), ValueError, "needs `data`"),
     (dict(plots=True), NotImplementedError, "item 5"),
     (dict(sharded=True), NotImplementedError, "item 8"),
     # item 9 is ported: without a dataloader `run` reads `data` (a dataset YAML or dict) and raises

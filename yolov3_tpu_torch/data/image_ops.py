@@ -8,11 +8,14 @@ holds each op against cv2 and states the tolerance met.
 
 Images are numpy uint8 (H, W, 3) in BGR order, cv2's layout.
 
-Decoding: PNG (8- and 16-bit gray, gray+alpha, RGB, RGBA and palette; not
-interlaced) and BMP (24- and 32-bit, uncompressed) are decoded here, the
-PNG stream inflated by Python's zlib. Any other format, JPEG included,
-goes through cv2 or PIL, imported when such a file is read; without
-either, reading one raises and names the file.
+Decoding: JPEG (`decode_jpeg`: baseline and progressive Huffman, 8-bit,
+gray or YCbCr, as libjpeg-turbo decodes it for cv2), PNG (8- and 16-bit
+gray, gray+alpha, RGB, RGBA and palette; not interlaced) and BMP (24- and
+32-bit, uncompressed) are decoded here, the PNG stream inflated by Python's
+zlib. Any other format (TIFF, WebP, ...) goes through cv2 or PIL, imported
+when such a file is read; without either, reading one raises and names the
+file. A JPEG never goes to a library: a kind `decode_jpeg` does not decode
+(arithmetic coding, 12-bit, lossless, CMYK) raises ValueError.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import numpy as np
 from yolov3_tpu_torch.ops import host_build
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SIGNATURE = b"\xff\xd8"
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 
 
@@ -153,6 +157,8 @@ def imdecode(data, name="<bytes>"):
     cv2.imdecode(..., IMREAD_COLOR) does; `name` goes into the error raised
     on bytes it cannot decode."""
     try:
+        if data[:2] == JPEG_SIGNATURE:
+            return decode_jpeg(data)
         if data[:8] == PNG_SIGNATURE:
             return decode_png(data)
         if data[:2] == b"BM":
@@ -162,8 +168,35 @@ def imdecode(data, name="<bytes>"):
         raise ValueError(f"cannot decode {name}: {e}") from e
 
 
+def decode_jpeg(data):
+    """JPEG bytes -> BGR uint8 (H, W, 3), equal to cv2.imread's decode (the
+    EXIF orientation applied, gray replicated). A stream that ends early
+    decodes as libjpeg's does (the missing blocks gray); cv2.imdecode refuses
+    such bytes, cv2.imread returns this image. Raises ValueError naming the
+    feature for a JPEG kind it does not decode."""
+    lib = host_build.load()
+    buf = np.frombuffer(bytes(data), np.uint8)
+    info = (ctypes.c_int * 4)()
+    err = ctypes.create_string_buffer(256)
+    if lib.jpeg_info(_ptr(buf), buf.size, info, err, 256):
+        raise ValueError(err.value.decode())
+    w, h, _, orientation = info
+    out = np.empty((h, w, 3), np.uint8)
+    if lib.jpeg_decode_bgr(_ptr(buf), buf.size, _ptr(out), err, 256) < 0:
+        raise ValueError(err.value.decode())
+    return _exif_orient(out, orientation)
+
+
+def _exif_orient(im, orientation):
+    """OpenCV's ApplyExifOrientation: EXIF orientation 1-8 to the upright image."""
+    if orientation >= 5:
+        im = im.transpose(1, 0, 2)
+    flip = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}.get(orientation, ())
+    return np.ascontiguousarray(np.flip(im, flip) if flip else im)
+
+
 def _decode_with_library(data, path):
-    """JPEG and every other format: cv2, else PIL, imported only here."""
+    """Every format other than JPEG, PNG and BMP: cv2, else PIL, imported only here."""
     try:
         import cv2
     except ImportError:
@@ -179,7 +212,7 @@ def _decode_with_library(data, path):
         from PIL import Image
     except ImportError:
         raise RuntimeError(
-            f"{path}: only PNG and BMP are decoded without OpenCV or Pillow, and neither is installed; "
+            f"{path}: only JPEG, PNG and BMP are decoded without OpenCV or Pillow, and neither is installed; "
             "convert the dataset's images to PNG") from None
     with Image.open(io.BytesIO(data)) as im:
         return np.ascontiguousarray(np.asarray(im.convert("RGB"))[:, :, ::-1])

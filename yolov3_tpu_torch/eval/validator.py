@@ -37,7 +37,7 @@ from yolov3_tpu_torch.data.dataset_yaml import check_dataset
 from yolov3_tpu_torch.data.datasets import DataLoader, DetectionDataset
 from yolov3_tpu_torch.eval.metrics import ap_per_class, process_batch
 from yolov3_tpu_torch.models.detect_head import decode_predictions
-from yolov3_tpu_torch.models.detection import DetectionModel, cast_for_inference
+from yolov3_tpu_torch.models.detection import DetectionModel, cast_for_inference, predict_augmented
 from yolov3_tpu_torch.ops.boxes import scale_boxes, xywh2xyxy, xyxy2xywh
 from yolov3_tpu_torch.ops.nms import batched_nms, non_max_suppression
 from yolov3_tpu_torch.train.loss import compute_loss
@@ -45,7 +45,6 @@ from yolov3_tpu_torch.utils.general import LOGGER, Profile, coco80_to_coco91_cla
 
 # arguments of the JAX `run` this port does not take yet, and the ROADMAP.md item that brings each
 NOT_PORTED = {
-    "augment": "test-time augmentation (ROADMAP.md queue 1 item 5)",
     "plots": "plots (ROADMAP.md queue 1 item 5)",
     "sharded": "sharded validation (ROADMAP.md queue 1 item 8)",
 }
@@ -93,17 +92,25 @@ def run(
     `ops.nms_cuda.greedy_nms` (the kernel) by default.
     save_hybrid: hybrid autolabelling (reference val.py:374): the labels are
     injected as detections of confidence 1; the losses are not computed.
-    `augment`, `plots` and `sharded` raise NotImplementedError when set
-    (NOT_PORTED).
+    augment: test-time augmentation (`models.detection.predict_augmented`).
+    `model` may also be an `Ensemble` (models/ensemble.py): its members'
+    decoded predictions are concatenated before the NMS, as the JAX
+    validator runs a non-native model (square letterbox, no loss, no TTA).
+    `plots` and `sharded` raise NotImplementedError when set (NOT_PORTED).
 
     Returns ((mp, mr, map50, map, *losses), per_class_maps, speeds_ms).
     """
-    for name, value in dict(augment=augment, plots=plots, sharded=sharded).items():
+    from yolov3_tpu_torch.models.ensemble import Ensemble
+
+    for name, value in dict(plots=plots, sharded=sharded).items():
         if value:
             raise NotImplementedError(f"validator.run: {NOT_PORTED[name]} is not ported yet")
-    if not isinstance(model, DetectionModel):
-        raise NotImplementedError("validator.run: a model other than yolov3_tpu_torch's DetectionModel "
-                                  "(exported backends) is not ported yet (ROADMAP.md queue 1 item 6)")
+    if not isinstance(model, (DetectionModel, Ensemble)):
+        raise NotImplementedError("validator.run: a model other than yolov3_tpu_torch's DetectionModel or "
+                                  "Ensemble (exported backends) is not ported yet (ROADMAP.md queue 1 item 6)")
+    native = isinstance(model, DetectionModel)
+    if not native:
+        rect, augment, half = False, False, False  # the JAX validator's non-native path
     if dataloader is None:
         if data is None:
             raise ValueError("validator.run needs `data` (a dataset YAML or dict) or a `dataloader`")
@@ -111,7 +118,7 @@ def run(
         names = names or data["names"]
         dataset = DetectionDataset(
             data.get(task) or data["val"], imgsz=imgsz, augment=False, rect=rect,
-            stride=int(max(model.spec.strides)), pad=0.5 if rect else 0.0, batch_size=batch_size,
+            stride=int(model.stride), pad=0.5 if rect else 0.0, batch_size=batch_size,
             num_cls=data["nc"], single_cls=single_cls,  # the dataset's classes; single_cls collapses them after
         )
         dataloader = DataLoader(dataset, batch_size=batch_size, shuffle=False, workers=workers)
@@ -127,9 +134,9 @@ def run(
     if task == "speed":  # benchmark settings (reference val.py:605-609)
         conf_thres, save_json = 0.25, False
     nms_iou = 0.45 if task == "speed" else iou_thres
-    with_loss = bool(compute_loss_flag and loss_cfg is not None and not save_hybrid)
+    with_loss = bool(compute_loss_flag and loss_cfg is not None and not save_hybrid and native)
     forward = make_forward(model, conf_thres, nms_iou, max_det, max_nms, loss_cfg=loss_cfg if with_loss else None,
-                           half=half, nms_fn=nms_fn, decode_only=save_hybrid)
+                           half=half, nms_fn=nms_fn, decode_only=save_hybrid, augment=augment)
 
     stats = []
     loss_sum = np.zeros(3)
@@ -254,15 +261,30 @@ def run(
 
 
 def make_forward(model, conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30000, loss_cfg=None, half=False,
-                 nms_fn=None, decode_only=False):
+                 nms_fn=None, decode_only=False, augment=False):
     """The per-batch device program of `run` (the JAX package's
     `_cached_forward`): uint8 (B, H, W, 3) images on the model's device ->
     (dets (B, max_det, 6), n (B,)), plus the loss components (3,) when
     `loss_cfg` is given (called with targets and mask then).
 
     The float32 eval forward, or with half=True the BN-folded bf16 model;
-    `decode_predictions`; multi-label `batched_nms` through `nms_fn`.
-    decode_only: return the decoded predictions (B, N, 5+nc) and stop there."""
+    `decode_predictions` (augment=True: the TTA passes of
+    `predict_augmented`); multi-label `batched_nms` through `nms_fn`.
+    decode_only: return the decoded predictions (B, N, 5+nc) and stop there.
+    An Ensemble's decoded predictions come from its `predict`."""
+    from yolov3_tpu_torch.models.ensemble import Ensemble
+
+    if isinstance(model, Ensemble):
+
+        @torch.inference_mode()
+        def forward_ensemble(imgs_u8):
+            pred = model(imgs_u8)
+            if decode_only:
+                return pred
+            return batched_nms(pred, conf_thres=conf_thres, iou_thres=iou_thres, multi_label=True,
+                               max_det=max_det, max_nms=max_nms, nms_fn=nms_fn)
+
+        return forward_ensemble
     if half:
         fused = model.fuse()  # a new model, unless `model` is fused already
         net = cast_for_inference(fused if fused is not model else copy.deepcopy(model))
@@ -275,8 +297,12 @@ def make_forward(model, conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30
         was_training = net.training
         net.eval()
         try:
-            feats = net(torch.as_tensor(imgs_u8, device=model.device).float() / 255.0)
-            pred = decode_predictions(feats, anchors, strides)
+            x = torch.as_tensor(imgs_u8, device=model.device).float() / 255.0
+            if augment and loss_cfg is None:  # with the loss, the JAX validator runs the plain forward
+                feats, pred = None, predict_augmented(net, x)
+            else:
+                feats = net(x)
+                pred = decode_predictions(feats, anchors, strides)
             if decode_only:
                 return pred
             dets, n_valid = batched_nms(pred, conf_thres=conf_thres, iou_thres=iou_thres, multi_label=True,

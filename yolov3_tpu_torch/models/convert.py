@@ -23,6 +23,11 @@ the same way: `from_jax_train_state` flattens it to
   ema/<key>          ema/ema/{params,batch_stats}
   ema/updates, step, balance
 
+Reference torch checkpoints (`.pt`) share the port's key names, so
+`load_torch_state_dict` (the EMA weights, else the model's, of a pickled
+module, a state dict or a module tree unpickled through stub classes) and
+`match_torch_state_dict` load them with `load_state_dict`.
+
 `flatten_train_state` gives the port's TrainState under the same keys, and
 `load_jax_train_state` loads the JAX state into a TrainState;
 `from_jax_opt_state` / `flatten_optimizer` / `load_jax_opt_state` do the
@@ -36,6 +41,8 @@ import re
 
 import numpy as np
 import torch
+
+from yolov3_tpu_torch.utils.general import LOGGER
 
 _LEAF = {
     ("params", "kernel"): "weight",
@@ -237,3 +244,100 @@ def load_jax_train_state(train_state, state):
     if "balance" in flat:
         train_state.balance = flat["balance"].to(train_state.model.device)
     return train_state
+
+
+# reference state-dict entries the port's model does not hold (yolov3_tpu/models/convert.py torch_key_to_path)
+_SKIPPED_LEAVES = ("num_batches_tracked", "anchors", "anchor_grid", "stride")
+
+
+def load_torch_state_dict(path):
+    """A reference .pt -> flat {name: float32 CPU tensor}: the EMA weights
+    when the checkpoint has them, else its model's (reference
+    experimental.py:105), from a pickled module, a state dict, or a module
+    tree whose classes are not importable (unpickled through stub classes).
+    fp16 tensors are cast to float32."""
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    except (ModuleNotFoundError, AttributeError) as e:
+        LOGGER.warning(f"pickled classes unavailable ({e}); retrying with stub modules")
+        ckpt = _load_with_stubs(path)
+    obj = ckpt
+    if isinstance(ckpt, dict):
+        obj = ckpt.get("ema") or ckpt.get("model") or ckpt
+    if hasattr(obj, "state_dict"):
+        sd = obj.state_dict()
+    elif not isinstance(obj, dict):  # a stub module with _parameters / _buffers / _modules
+        sd = _walk_stub_state_dict(obj)
+    else:
+        sd = obj
+    return {k: (v.detach().float() if v.is_floating_point() else v.detach()).cpu()
+            for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def _load_with_stubs(path):
+    """Unpickle a checkpoint whose module classes are not importable, with
+    permissive stub classes installed under the reference's module paths."""
+    import pickle
+    import sys
+    import types
+
+    class _Stub:
+        def __setstate__(self, state):
+            self.__dict__.update(state if isinstance(state, dict) else {})
+
+        def __getattr__(self, k):
+            raise AttributeError(k)
+
+    class _StubModule(types.ModuleType):
+        def __getattr__(self, name):
+            if name.startswith("__"):
+                raise AttributeError(name)
+            cls = type(name, (_Stub,), {})
+            setattr(self, name, cls)
+            return cls
+
+    created = []
+    for mod in ("models", "models.yolo", "models.common", "models.experimental", "utils", "utils.loss"):
+        if mod not in sys.modules:
+            sys.modules[mod] = _StubModule(mod)
+            created.append(mod)
+    try:
+        return torch.load(path, map_location="cpu", weights_only=False, pickle_module=pickle)
+    finally:
+        for mod in created:
+            sys.modules.pop(mod, None)
+
+
+def _walk_stub_state_dict(obj, prefix=""):
+    """The tensors of a stub-unpickled torch module tree, under state-dict names."""
+    out = {}
+    d = getattr(obj, "__dict__", {})
+    for coll in ("_parameters", "_buffers"):
+        for k, v in (d.get(coll) or {}).items():
+            if v is not None:
+                out[prefix + k] = v
+    for k, child in (d.get("_modules") or {}).items():
+        out.update(_walk_stub_state_dict(child, prefix + k + "."))
+    return out
+
+
+def match_torch_state_dict(model, sd):
+    """Split a reference state dict against `model`: ({key: tensor} that
+    load, [reasons for the ones that do not]); the reference's anchors,
+    strides and BatchNorm counters are skipped, as in the JAX converter."""
+    target = model.state_dict()
+    matched, missed = {}, []
+    for k, v in sd.items():
+        if k.split(".")[-1] in _SKIPPED_LEAVES:
+            continue
+        if k not in target:
+            missed.append(f"{k}: no target in the model")
+        elif tuple(v.shape) != tuple(target[k].shape):
+            missed.append(f"{k}: shape {tuple(v.shape)} vs ours {tuple(target[k].shape)}")
+        else:
+            matched[k] = v
+    LOGGER.info(f"convert: matched {len(matched)} torch tensors -> {len(target)} target entries; "
+                f"{len(missed)} unmatched")
+    for msg in missed[:10]:
+        LOGGER.warning(f"  unmatched: {msg}")
+    return matched, missed

@@ -7,19 +7,25 @@ are the reference's `model.{i}.…` / `model.{i}.{r}.…` and the Detect convs
 the save list keeps the outputs later layers route from. With `remat=True`
 the body runs in checkpointed segments (torch.utils.checkpoint), as the JAX
 `YOLOGraph(remat=True)` does with `nn.remat`.
+
+`predict` decodes one forward, or with augment=True the test-time
+augmentation of `predict_augmented` (three scales, a left-right flip),
+the counterpart of the JAX package's `predict_augmented_pure`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from yolov3_tpu_torch.models.detect_head import Detect, detect_bias
+from yolov3_tpu_torch.models.detect_head import Detect, decode_predictions, detect_bias
 from yolov3_tpu_torch.models.fuse import fuse_state_dict
 from yolov3_tpu_torch.models.spec import ModelSpec, parse_spec
 from yolov3_tpu_torch.nn import activations
@@ -58,9 +64,10 @@ class DetectionModel(nn.Module):
         assert detect.op == "Detect", "spec must end with a Detect layer"
         layers.append(Detect(spec.nc, spec.na, [spec.out_channels(j) for j in detect.f], spec.strides))
         self.model = nn.ModuleList(layers)
+        self.names = {i: str(i) for i in range(spec.nc)}
 
     @classmethod
-    def from_config(cls, cfg="yolov3", seed=0, device=None, dtype=torch.float32, ch=3, nc=None,
+    def from_config(cls, cfg="yolov3-tiny", seed=0, device=None, dtype=torch.float32, ch=3, nc=None,
                     anchors=None):
         """Build from a YAML config / name / dict with a seeded random init
         (a CPU `torch.Generator`, so the weights do not depend on the device).
@@ -92,6 +99,10 @@ class DetectionModel(nn.Module):
     @property
     def device(self):
         return self.model[-1].m[0].weight.device
+
+    @property
+    def stride(self):
+        return max(self.spec.strides)
 
     @property
     def anchors_px(self):
@@ -134,6 +145,13 @@ class DetectionModel(nn.Module):
         detect = self.spec.layers[-1]
         return self.model[-1]([out if j == prev else saved[j] for j in detect.f], raw=raw)
 
+    def predict(self, x, augment=False):
+        """Decoded predictions (B, N, 5 + nc) float32 of NHWC images in [0, 1];
+        augment=True: the test-time augmentation of `predict_augmented`."""
+        if augment:
+            return predict_augmented(self, x)
+        return decode_predictions(self(x), self.anchors_px, self.spec.strides)
+
     def set_bn_stats_fn(self, fn):
         """Route every train-mode conv+BN-statistics call (nn.modules.Conv)
         through `fn`: the kernel wrapper `conv3x3_bn_stats` by default, its
@@ -151,6 +169,7 @@ class DetectionModel(nn.Module):
         with torch.device("meta"):
             fused = DetectionModel(self.spec, fused=True)
         fused.load_state_dict(sd, assign=True)
+        fused.names = dict(self.names)
         return fused.eval()
 
 
@@ -173,6 +192,71 @@ def _run_layers(layers, out, saved, prev, save):
 
 def _recompute_context():
     return contextlib.nullcontext(), recomputing()
+
+
+def predict_augmented(model, x):
+    """Test-time augmentation (yolov3_tpu/models/detection.py
+    predict_augmented_pure): the decoded predictions of the image at scales
+    1, 0.83 and 0.67, the second flipped left-right, each mapped back to the
+    image's pixels; the first pass loses its smallest-stride tail and the
+    last its largest-stride head (`_clip_augmented`), and the three are
+    concatenated. x: (B, H, W, C) NHWC in [0, 1]."""
+    h, w = x.shape[1:3]
+    gs = int(model.stride)
+    outs = []
+    for si, fi in zip((1.0, 0.83, 0.67), (None, 3, None)):
+        xi = x.flip(2) if fi == 3 else (x.flip(1) if fi == 2 else x)
+        xi = _scale_img(xi, si, gs)
+        yi = decode_predictions(model(xi), model.anchors_px, model.spec.strides)
+        outs.append(_descale_pred(yi, fi, si, (h, w)))
+    return torch.cat(_clip_augmented(outs, model.spec.nl), 1)
+
+
+def _scale_img(img, ratio=1.0, gs=32, pad_value=0.447):
+    """Resize an NHWC batch by `ratio` to int(h * ratio) x int(w * ratio),
+    bilinear without antialiasing (half-pixel centres, the explicit output
+    size: source coordinates scale by in/out, as jax.image.resize's do), then
+    pad bottom and right with `pad_value` to a multiple of gs."""
+    if ratio == 1.0:
+        return img
+    b, h, w, c = img.shape
+    sh, sw = int(h * ratio), int(w * ratio)
+    y = F.interpolate(img.permute(0, 3, 1, 2), size=(sh, sw), mode="bilinear", align_corners=False)
+    th, tw = math.ceil(h * ratio / gs) * gs, math.ceil(w * ratio / gs) * gs
+    return F.pad(y, (0, tw - sw, 0, th - sh), value=pad_value).permute(0, 2, 3, 1)
+
+
+def _descale_pred(p, flips, scale, img_size):
+    """Undo a TTA pass's scale and flip on decoded predictions."""
+    xy, wh = p[..., 0:2] / scale, p[..., 2:4] / scale
+    if flips == 2:  # up-down
+        xy = torch.stack([xy[..., 0], img_size[0] - xy[..., 1]], -1)
+    elif flips == 3:  # left-right
+        xy = torch.stack([img_size[1] - xy[..., 0], xy[..., 1]], -1)
+    return torch.cat([xy, wh, p[..., 4:]], -1)
+
+
+def _clip_augmented(y, nl):
+    """Drop the first pass's smallest-stride tail and the last pass's largest-stride head."""
+    g = sum(4**x for x in range(nl))
+    i = (y[0].shape[1] // g) * 1
+    y[0] = y[0][:, :-i]
+    i = (y[-1].shape[1] // g) * 4 ** (nl - 1)
+    y[-1] = y[-1][:, i:]
+    return y
+
+
+def optimize_for_inference(model: DetectionModel, bf16=None) -> DetectionModel:
+    """The inference form (yolov3_tpu/models/detection.py optimize_for_inference):
+    Conv+BN folded, and bf16 weights when `bf16`, which None makes true on
+    the card and false on the CPU (the JAX `half=None`). A new model; this
+    one is left as it is."""
+    fused = model.fuse()
+    if fused is model:
+        fused = copy.deepcopy(model)
+    if bf16 is None:
+        bf16 = model.device.type == "cuda"
+    return cast_for_inference(fused) if bf16 else fused
 
 
 def cast_for_inference(model: DetectionModel, dtype=torch.bfloat16) -> DetectionModel:

@@ -82,9 +82,13 @@ def _declare(lib):
         "hsv2bgr_u8": [u8p, u8p, ctypes.c_long, i],
         "png_unfilter": [u8p, i, i, i, u8p],
         "png_filter_sub": [u8p, i, i, i, u8p],
+        "jpeg_info": [u8p, ctypes.c_long, ctypes.POINTER(i), ctypes.c_char_p, i],
+        "jpeg_decode_bgr": [u8p, ctypes.c_long, u8p, ctypes.c_char_p, i],
+        "blend_mask_u8": [u8p, i, i, u8p, i, i, i, i, u8p],
+        "draw_rect_stamp": [u8p, i, i, u8p, i, i, i, i, i, i, i, u8p],
     }
     for name, args in sig.items():
         fn = getattr(lib, name)
         fn.argtypes = args
-        fn.restype = ctypes.c_int if name == "png_unfilter" else None
+        fn.restype = ctypes.c_int if name in ("png_unfilter", "jpeg_info", "jpeg_decode_bgr") else None
     return lib

@@ -1,6 +1,6 @@
 """Batched serving and the HTTP server in front of it (yolov3_tpu/serve.py).
 
-    # server: a port checkpoint directory (train()'s weights/best) or a cfg name
+    # server: a port checkpoint directory (train()'s weights/best), a reference .pt or a cfg name
     python -m yolov3_tpu_torch.serve --weights runs/train/exp/weights/best --port 8507
 
     # client
@@ -35,13 +35,13 @@ import queue
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from yolov3_tpu_torch.models.detect_head import decode_predictions, decode_topk_nhwc
 from yolov3_tpu_torch.models.detection import cast_for_inference
+from yolov3_tpu_torch.models.loading import load_weights
 from yolov3_tpu_torch.ops.nms import batched_nms, nms_from_candidates
 from yolov3_tpu_torch.utils.general import LOGGER
 
@@ -220,23 +220,6 @@ def build_pipeline(model, imgsz=640, conf_thres=0.25, iou_thres=0.45, max_det=30
     return predict
 
 
-def load_weights(weights, device=None):
-    """A DetectionModel from `weights`: a port checkpoint directory (one with
-    checkpoint.yaml; EMA weights when it has them) or a model config name /
-    YAML path (seeded random init). A reference `.pt` raises. device=None
-    means "cuda"."""
-    from yolov3_tpu_torch.models.detection import DetectionModel
-    from yolov3_tpu_torch.utils.checkpoint import load_model_from_checkpoint
-
-    p = Path(str(weights))
-    if (p / "checkpoint.yaml").is_file():
-        return load_model_from_checkpoint(p, device=device)
-    if p.suffix == ".pt":
-        raise NotImplementedError(f"{weights}: loading a reference .pt checkpoint is not ported yet "
-                                  "(ROADMAP.md queue 1 item 5); serve a checkpoint directory of the port")
-    return DetectionModel.from_config(str(weights), device=device)
-
-
 def make_server(weights, host="0.0.0.0", port=8507, imgsz=640, conf_thres=0.25, iou_thres=0.45, max_batch=8,
                 batch_wait_ms=5.0, fast=True, shard=False, device=None):
     """Build the model and the pipeline, run every batch bucket once, and
@@ -349,7 +332,8 @@ def main():
     import argparse
 
     p = argparse.ArgumentParser()
-    p.add_argument("--weights", default="yolov3-tiny", help="a port checkpoint directory or a model cfg")
+    p.add_argument("--weights", default="yolov3-tiny",
+                   help="a port checkpoint directory, a reference .pt or a model cfg")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8507)
     p.add_argument("--imgsz", type=int, default=640)

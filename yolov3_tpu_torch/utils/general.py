@@ -1,15 +1,17 @@
 """General helpers: logger, YAML files, seeds, run directories, channel
 rounding, device choice, timer, class weights, COCO class ids, git
-provenance (the parts of yolov3_tpu/utils/general.py the port needs, kept
-as its own copy)."""
+provenance and the CLIs' checks (the parts of yolov3_tpu/utils/general.py
+the port needs, kept as its own copy)."""
 
 from __future__ import annotations
 
 import contextlib
+import glob
 import logging
 import math
 import os
 import random
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -95,6 +97,71 @@ def increment_path(path, exist_ok=False, sep="", mkdir=False):
 def make_divisible(x, divisor):
     """Round up x to the nearest multiple of divisor."""
     return math.ceil(x / divisor) * divisor
+
+
+def check_img_size(imgsz, s=32, floor=0):
+    """Image size(s) rounded up to a multiple of the stride s (at least `floor`)."""
+    if isinstance(imgsz, int):
+        new_size = max(make_divisible(imgsz, int(s)), floor)
+    else:
+        imgsz = list(imgsz)
+        new_size = [max(make_divisible(x, int(s)), floor) for x in imgsz]
+    if new_size != imgsz:
+        LOGGER.warning(f"--img-size {imgsz} must be multiple of max stride {s}, updating to {new_size}")
+    return new_size
+
+
+def check_suffix(file="model.ckpt", suffix=(".ckpt",), msg=""):
+    """Assert file(s) have an acceptable suffix."""
+    if file and suffix:
+        if isinstance(suffix, str):
+            suffix = [suffix]
+        for f in file if isinstance(file, (list, tuple)) else [file]:
+            s = Path(f).suffix.lower()
+            if len(s):
+                assert s in suffix, f"{msg}{f} acceptable suffix is {suffix}"
+
+
+def check_yaml(file, suffix=(".yaml", ".yml")):
+    """A YAML file's path, searched for as `check_file` does."""
+    return check_file(file, suffix)
+
+
+def check_file(file, suffix=""):
+    """`file` if it exists, else the one file of that name in the package's
+    config directories; a local search only (nothing is downloaded)."""
+    check_suffix(file, suffix)
+    file = str(file)
+    if Path(file).is_file() or not file:
+        return file
+    files = []
+    for d in ("yolov3_tpu_torch/models/configs", "yolov3_tpu_torch/data", "yolov3_tpu_torch/data/hyps", "data"):
+        files.extend(glob.glob(str(ROOT / d / "**" / Path(file).name), recursive=True))
+    assert len(files), f"File not found: {file}"
+    assert len(files) == 1, f"Multiple files match '{file}', specify exact path: {files}"
+    return files[0]
+
+
+def file_size(path):
+    """Size of a file or directory in MB."""
+    mb = 1 << 20
+    path = Path(path)
+    if path.is_file():
+        return path.stat().st_size / mb
+    if path.is_dir():
+        return sum(f.stat().st_size for f in path.glob("**/*") if f.is_file()) / mb
+    return 0.0
+
+
+def print_args(args: dict | None = None, show_file=True):
+    """Log a dict of arguments (CLI echo)."""
+    s = ", ".join(f"{k}={v}" for k, v in (args or {}).items())
+    LOGGER.info(colorstr("args: ") + s)
+
+
+def clean_str(s):
+    """Sanitize a string to be a safe filename component."""
+    return re.sub(pattern="[|@#!¡·$€%&()=?¿^*;:,¨´><+]", repl="_", string=s)
 
 
 def select_device(device=None) -> torch.device:
