@@ -14,10 +14,11 @@ Phases, each printing its result on its own line:
      outputs of yolov3@640 at batch 32 and at ragged, f16, f32 and unaligned
      shapes; its time per scale and for the three scales beside the bound;
   4. the conv3x3 + BatchNorm-statistics kernels against the plain version at
-     every stride-1 3x3 conv shape of yolov3, yolov3-spp and yolov3-tiny at
-     640 px and at small f32 and odd shapes; each row names the kernel it
-     took and is run twice for equal bits; yolov3's shapes (batch 8, bf16)
-     are timed beside two library yardsticks, cuDNN's conv + var_mean over an
+     every stride-1 3x3 conv shape of yolov3, yolov3-spp, yolov3-tiny,
+     yolov5s and yolov5s-transformer at 640 px and at small f32 and odd
+     shapes; each row names the kernel it took and is run twice for equal
+     bits; yolov3's and yolov5s's shapes (batch 8, bf16) are timed beside two
+     library yardsticks, cuDNN's conv + var_mean over an
      f32 copy of y and over the bf16 y, by kernel time and by CUDA events;
   5. the serving path: full-width yolov3 (seeded random weights, detections
      planted on the head bias), 64 concurrent 640x640 requests through
@@ -45,8 +46,10 @@ Phases, each printing its result on its own line:
      hyper-parameters, 1 + 10 steps on one seeded batch of 8 640x640 images
      with 8 boxes each; finite falling loss, moved parameters, BatchNorm
      statistics and EMA, 33 launches of the conv+statistics kernel a step,
-     one step with the kernel against one with its plain version from the
-     same state, a profile of a step by kernel group; then the step with
+     a profile of a step by kernel group, then a float32 step with the
+     kernel against one with its plain version from each of six states of
+     the run, and the kernel against its plain version on a bf16 step's own
+     inputs (steps_against_plain); then the step with
      remat off, whole-body and remat_until=7 from one state: peak memory,
      ms per step, K3 launches per step, the same loss, grad norm and
      BatchNorm statistics (updated once);
@@ -68,7 +71,13 @@ Phases, each printing its result on its own line:
      stripped), a resume of a third epoch from the full state the second
      saved (step, optimizer and EMA counters restored; device busy share
      of its train loop under the profiler), and the stripped `best` served
-     through build_batched_infer (K2 and K1 launched).
+     through build_batched_infer (K2 and K1 launched);
+ 11. the YOLOv5s family at its published widths (phase_zoo): yolov5s
+     (7,235,389 parameters) served in batches of 32 at 640 px (K2 three and
+     K1 one launch a batch, equal to the plain path, ms a batch) and trained
+     1 + 5 steps at batch 8 (11 K3 launches a step), held as in 8;
+     yolov5s-transformer and yolov5s-ghost one served batch of 8 and one
+     train step each (K3 10 and 0 launches), held alike.
 With `--kernel-times [ROOT]` it only times K3, K1 and K2 of the package under
 ROOT (default: beside this file) at the main paths' shapes and stops: run
 once per tree, parent, change, change, parent, to compare two trees on one
@@ -399,6 +408,55 @@ def calibrate(model, probe, targets=(112.0, 28.0, 10.0), conf=0.25):
     return gains, deltas
 
 
+def settle_bn(model, frames):
+    """Every BatchNorm's running statistics from one train-mode forward of
+    `frames` (momentum 1), then eval mode. With its seeded init statistics
+    (mean 0, var 1) a random yolov5s's eval forward shrinks its activations
+    layer by layer until the head's objectness no longer depends on the
+    image, and no bias shift plants a given number of detections; a trained
+    model's statistics keep them at unit scale, as these do."""
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    momenta = [bn.momentum for bn in bns]
+    for bn in bns:
+        bn.momentum = 1.0
+    model.train()
+    with torch.no_grad():
+        model(torch.as_tensor(frames, device=model.device).float() / 255.0, raw=True)
+    for bn, m in zip(bns, momenta):
+        bn.momentum = m
+    model.eval()
+
+
+def plant_under_topk(model, frames, k=(256, 128, 64), targets=(112.0, 28.0, 10.0), conf=0.25):
+    """Plant detections (`calibrate`, `plant_detections`) for the served
+    frames themselves, halving a scale's target until no frame has more than
+    half that scale's top-k above `conf`: a random yolov5's objectness moves
+    with each frame as a whole (at 40x40 one frame in 32 had ten times the
+    median above conf), and a frame past the top-k takes the full-decode
+    fallback. Returns the targets and the cells above conf by scale and frame."""
+    detect = model.model[-1]
+    base = [(c.weight.detach().clone(), c.bias.detach().clone()) for c in detect.m]
+    targets = list(targets)
+    for _ in range(10):
+        with torch.no_grad():
+            for conv, (w, b) in zip(detect.m, base):
+                conv.weight.copy_(w)
+                conv.bias.copy_(b)
+        plant_detections(model, base, *calibrate(model, frames, tuple(targets), conf))
+        with torch.inference_mode():
+            feats = model(torch.as_tensor(frames, device=model.device).float() / 255.0, raw=True)
+        counts = []
+        for f in feats:
+            p = torch.sigmoid(f.float().reshape(f.shape[0], -1, detect.no))
+            counts.append(((p[..., 4:5] * p[..., 5:]).amax(-1) > conf).sum(1).cpu().numpy())
+        over = [i for i, c in enumerate(counts) if c.max() > k[i] // 2]
+        if not over:
+            return targets, counts
+        for i in over:
+            targets[i] /= 2
+    raise RuntimeError(f"chip_smoke: no targets keep every frame under half the top-k {k}: {targets}")
+
+
 KERNEL_GROUPS = (  # kernel-name substrings -> the layer it belongs to
     ("K1 greedy_nms", ("greedy_nms",)),
     ("K2 masked_scores", (SCORE_KERNEL,)),
@@ -437,11 +495,9 @@ def profile_fast_path(infer, imgs, iters=3):
 
 
 def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32):
-    from yolov3_tpu_torch.models.detect_head import decode_topk_nhwc
     from yolov3_tpu_torch.ops import nms as nms_module
-    from yolov3_tpu_torch.ops.nms import nms_from_candidates
-    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms, greedy_nms_plain
-    from yolov3_tpu_torch.ops.score_cuda import masked_scores, masked_scores_plain
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
+    from yolov3_tpu_torch.ops.score_cuda import masked_scores
     from yolov3_tpu_torch.serve import MicroBatcher, build_batched_infer
 
     frames = rng.integers(0, 256, size=(n_requests, imgsz, imgsz, 3), dtype=np.uint8)
@@ -511,26 +567,38 @@ def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32):
 
     profile_fast_path(infer, imgs)
 
-    # the fast path with kernels vs the plain score and NMS on the same bf16 head outputs
+    check_fast_path(infer, model, imgs)
+    return launches, dict(img_s=n_requests / serve_s, batch_ms=batch_ms)
+
+
+def check_fast_path(infer, model, imgs, label="fast path"):
+    """The served batch through the kernels against the plain score and NMS
+    functions on the same bf16 head outputs: n equal, boxes 0.1 px, conf 1e-3."""
+    from yolov3_tpu_torch.models.detect_head import decode_topk_nhwc
+    from yolov3_tpu_torch.ops.nms import nms_from_candidates
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms_plain
+    from yolov3_tpu_torch.ops.score_cuda import masked_scores_plain
+
     fallbacks = infer.fallbacks
     dets_k, n_k = infer(imgs)
-    check(infer.fallbacks == fallbacks, "the compared batch took the full-decode fallback")
+    check(infer.fallbacks == fallbacks, f"{label}: the compared batch took the full-decode fallback")
     with torch.inference_mode():
         feats = infer.serving_model(imgs.to(torch.bfloat16) / 255.0, raw=True)
         boxes, scores, cls_ids, ov = decode_topk_nhwc(feats, model.anchors_px, model.spec.strides,
                                                       with_overflow=True, score_fn=masked_scores_plain)
         dets_p, n_p = nms_from_candidates(boxes, scores, cls_ids, nms_fn=greedy_nms_plain)
     n_k, n_p = np.asarray(n_k), n_p.cpu().numpy()
-    check(not bool(ov.any()), "the compared batch overflowed")
-    check((n_k == n_p).all(), f"fast path n {n_k.tolist()} != plain {n_p.tolist()}")
+    check(not bool(ov.any()), f"{label}: the compared batch overflowed")
+    check((n_k == n_p).all(), f"{label}: n {n_k.tolist()} != plain {n_p.tolist()}")
+    check(n_k.sum() > 0, f"{label}: no detection in the compared batch")
     dk, dp = dets_k.cpu().numpy(), dets_p.cpu().numpy()
     valid = np.arange(dk.shape[1])[None, :] < n_k[:, None]  # rows [0, n) of each image
     box_err = float(np.abs(dk[..., :4] - dp[..., :4])[valid].max(initial=0.0))
     conf_err = float(np.abs(dk[..., 4] - dp[..., 4])[valid].max(initial=0.0))
-    check(box_err <= 0.1 and conf_err <= 1e-3, f"fast path vs plain: box err {box_err}, conf err {conf_err}")
-    print(f"fast path vs plain kernels' versions: n equal (sum {int(n_k.sum())}), "
+    check(box_err <= 0.1 and conf_err <= 1e-3, f"{label} vs plain: box err {box_err}, conf err {conf_err}")
+    print(f"{label} vs plain kernels' versions: n equal (sum {int(n_k.sum())}), "
           f"max box err {box_err:.3g} px, max conf err {conf_err:.3g}", flush=True)
-    return launches, dict(img_s=n_requests / serve_s, batch_ms=batch_ms)
+    return dict(n=int(n_k.sum()), box_err=box_err, conf_err=conf_err)
 
 
 # a 390x500 frame letterboxed into 512x640: gain 1.28, 6.4 rows of padding above and below
@@ -1057,7 +1125,8 @@ def phase_save_hybrid(model, batches, map50_f32):
 
 K3_KERNELS = ("conv3x3_stats", "bn_stats_finalize")  # the conv kernel and its fixed-order stats reduction
 # (label, dtype, B, H, W, Cin, Cout). First yolov3@640's stride-1 3x3 convs at batch 8, one per map
-# size and the stem (yolov3-spp's are the same six): these are timed. Then, for correctness only, the
+# size and the stem (yolov3-spp's are the same six), then yolov5s@640's (its C3 bottlenecks, Cin =
+# Cout; yolov5s-transformer's are among them): these are timed. Then, for correctness only, the
 # shapes yolov3-tiny adds, at batch 2; odd shapes that reach every path of the kernels (each swizzle
 # width of the wgmma kernel, a ragged last pixel tile, a Cout that is no multiple of the channel
 # tile or of 8, a ragged stem row, the element-load kernel); and small f32 shapes.
@@ -1068,6 +1137,10 @@ K3_SHAPES = (
     ("40x40 256->512", torch.bfloat16, 8, 40, 40, 256, 512),
     ("20x20 512->1024", torch.bfloat16, 8, 20, 20, 512, 1024),
     ("stem 640x640 3->32", torch.bfloat16, 8, 640, 640, 3, 32),
+    ("160x160 32->32", torch.bfloat16, 8, 160, 160, 32, 32),
+    ("80x80 64->64", torch.bfloat16, 8, 80, 80, 64, 64),
+    ("40x40 128->128", torch.bfloat16, 8, 40, 40, 128, 128),
+    ("20x20 256->256", torch.bfloat16, 8, 20, 20, 256, 256),
     ("tiny stem 640x640 3->16", torch.bfloat16, 2, 640, 640, 3, 16),
     ("tiny 320x320 16->32", torch.bfloat16, 2, 320, 320, 16, 32),
     ("tiny 160x160 32->64", torch.bfloat16, 2, 160, 160, 32, 64),
@@ -1087,7 +1160,7 @@ K3_SHAPES = (
     ("f32 8x24 4->8", torch.float32, 8, 8, 24, 4, 8),
     ("f32 odd 13x19 5->7", torch.float32, 8, 13, 19, 5, 7),
 )
-# yolov3's rows, the ones that are timed
+# yolov3's and yolov5s's rows, the ones that are timed
 K3_TIMED = tuple(row for row in K3_SHAPES if row[1] == torch.bfloat16 and row[2] == 8 and not row[0].startswith("odd"))
 K3_MAIN_SHAPE = "80x80 128->256"  # the row of the {"kernels": ...} line
 # y: one bf16 ulp of the plain version's rounding / f32 sums in another order
@@ -1202,7 +1275,7 @@ TRAIN_GROUPS = (  # kernel-name substrings -> group, first match wins
 STEP_RANGES = ("train_step/forward", "train_step/loss", "train_step/optimizer", "train_step/ema")
 
 
-def profile_train_step(step, batch, iters=2):
+def profile_train_step(step, batch, iters=2, label="train"):
     """Device time of a train step by kernel group (by kernel name) and by the
     step's own phases (the record_function ranges of train/step.py; the
     backward runs on autograd's thread and is the remainder)."""
@@ -1233,7 +1306,7 @@ def profile_train_step(step, batch, iters=2):
         edge = max(edge, end)
     groups = {g: t / iters / 1e3 for g, t in by_group.items()}
     parts = ", ".join(f"{g} {t:.3f} ms" for g, t in sorted(groups.items(), key=lambda x: -x[1]))
-    print(f"train profile, per step: {parts}; {len(spans) // iters} kernels, device busy "
+    print(f"{label} profile, per step: {parts}; {len(spans) // iters} kernels, device busy "
           f"{busy / wall_us:.1%} of {wall_us / iters / 1e3:.3f} ms wall (profiler on)", flush=True)
     # by phase: the host-side range events carry the kernels launched inside them
     def launched(event):
@@ -1250,24 +1323,31 @@ def profile_train_step(step, batch, iters=2):
     if seen == len(STEP_RANGES) * iters and sum(ranges.values()) > 0:
         ranges["backward"] = total / iters / 1e3 - sum(ranges.values())
         counts["backward"] = len(spans) // iters - sum(counts.values())
-        print("train profile, kernel ms per step by phase (backward = launched outside the step's ranges): "
+        print(f"{label} profile, kernel ms per step by phase (backward = launched outside the step's ranges): "
               + ", ".join(f"{k} {v:.3f}" for k, v in ranges.items()), flush=True)
-        print("train profile, kernels per step by phase: " + ", ".join(f"{k} {v}" for k, v in counts.items())
+        print(f"{label} profile, kernels per step by phase: " + ", ".join(f"{k} {v}" for k, v in counts.items())
               + "; host ms inside the ranges (profiler on): "
               + ", ".join(f"{k} {v:.1f}" for k, v in host_ms.items()), flush=True)
     else:
         ranges, counts = {}, {}
-        print(f"train profile by phase: not measured ({seen} range events seen)", flush=True)
+        print(f"{label} profile by phase: not measured ({seen} range events seen)", flush=True)
     for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:14]:
-        print(f"train profile kernel {t / iters / 1e3:.3f} ms  {name[:110]}", flush=True)
+        print(f"{label} profile kernel {t / iters / 1e3:.3f} ms  {name[:110]}", flush=True)
     return dict(groups_ms=groups, phases_ms=ranges, phase_kernels=counts, kernels=len(spans) // iters,
                 device_busy=busy / wall_us)
 
 
-def phase_train(rng, model, bs=8, imgsz=640, steps=10, convs_per_step=33):
-    """Drive the train path: 1 + `steps` steps on one seeded batch. Returns
-    (launches of the conv+statistics kernel over those steps, measurements)."""
-    from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats, conv3x3_bn_stats_plain
+YOLOV3_K3_CONVS = 33  # stride-1 3x3 convs of yolov3: K3 launches in each train step
+STATES_AGAINST_PLAIN = 6  # states of a train run from which K3 and its plain version each take one f32 step
+F32_STEP_LIMITS = dict(loss_rtol=1e-4, norm_rtol=1e-3)
+
+
+def phase_train(rng, model, bs=8, imgsz=640, steps=10, convs_per_step=YOLOV3_K3_CONVS, label="train"):
+    """Drive the train path: 1 + `steps` steps on one seeded batch, then hold
+    K3 against its plain version from the run's states (`steps_against_plain`).
+    Returns (launches of the conv+statistics kernel in the path's steps,
+    measurements); `label` starts each line printed."""
+    from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
     from yolov3_tpu_torch.train.loss import LossConfig
     from yolov3_tpu_torch.train.optim import build_optimizer
     from yolov3_tpu_torch.train.step import make_train_step
@@ -1290,74 +1370,137 @@ def phase_train(rng, model, bs=8, imgsz=640, steps=10, convs_per_step=33):
 
     # --- the train path: every launch from here to the count read is the path's own
     conv3x3_bn_stats.launches = 0
+    t0 = time.perf_counter()
     losses = [step(*batch)["loss"]]  # warm-up: cuDNN picks its algorithms, the allocator grows
     if on_card:
         torch.cuda.synchronize()
         check(conv3x3_bn_stats.launches == convs_per_step,
-              f"first step launched the conv+statistics kernel {conv3x3_bn_stats.launches} times")
-    t0 = time.perf_counter()
+              f"{label}: first step launched the conv+statistics kernel {conv3x3_bn_stats.launches} times")
+    t1 = time.perf_counter()
     for _ in range(steps):
         losses.append(step(*batch)["loss"])
     if on_card:
         torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    t2 = time.perf_counter()
     launches = conv3x3_bn_stats.launches
     # --- end of the train path
 
     losses = [float(v) for v in losses]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
-    print(f"train path: {steps} steps of batch {bs} at {imgsz} px in {step_ms:.2f} ms/step = "
-          f"{bs / step_ms * 1e3:.1f} img/s; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
-          f"K3 launches {launches}; peak memory {peak_gb:.2f} GB", flush=True)
-    print("train losses: " + " ".join(f"{v:.4f}" for v in losses), flush=True)
-    check(all(np.isfinite(losses)), f"a loss is not finite: {losses}")
-    check(losses[-1] < losses[0], f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    out = dict(first_step_ms=(t1 - t0) * 1e3, peak_memory_gb=peak_gb, losses=losses)
+    msg = (f"{label} path: batch {bs} at {imgsz} px, first step {out['first_step_ms']:.1f} ms "
+           "(cuDNN picks its algorithms)")
+    if steps:
+        out["step_ms"] = (t2 - t1) / steps * 1e3
+        out["img_s"] = bs / out["step_ms"] * 1e3
+        msg += f", then {steps} steps in {out['step_ms']:.2f} ms/step = {out['img_s']:.1f} img/s"
+    print(f"{msg}; loss {losses[0]:.4f} -> {losses[-1]:.4f}; K3 launches {launches}; peak memory {peak_gb:.2f} GB",
+          flush=True)
+    print(f"{label} losses: " + " ".join(f"{v:.4f}" for v in losses), flush=True)
+    check(all(np.isfinite(losses)), f"{label}: a loss is not finite: {losses}")
+    kinds = (("bn running_mean", "running_mean"), ("bn running_var", "running_var"))
+    if steps:  # the warm-up starts at a weight lr of 0: the first step moves no weight
+        check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses[0]} -> {losses[-1]}")
+        kinds = (("conv weights", "conv.weight"), ("bn weights", "bn.weight"), *kinds)
     check(state.step == steps + 1 and state.ema.updates == steps + 1 and optimizer.updates == steps + 1,
-          f"step counters: step {state.step}, ema {state.ema.updates}, optimizer {optimizer.updates}")
+          f"{label}: step counters: step {state.step}, ema {state.ema.updates}, optimizer {optimizer.updates}")
     if on_card:
         check(launches == convs_per_step * (steps + 1),
-              f"{launches} launches of the conv+statistics kernel in {steps + 1} steps, "
+              f"{label}: {launches} launches of the conv+statistics kernel in {steps + 1} steps, "
               f"expected {convs_per_step} a step")
     after = model.state_dict()
 
     def moved(keys):
         return sum(not torch.equal(before[k], after[k]) for k in keys), len(keys)
 
-    keys = {kind: [k for k in before if k.endswith(suffix)]
-            for kind, suffix in (("conv weights", "conv.weight"), ("bn weights", "bn.weight"),
-                                 ("bn running_mean", "running_mean"), ("bn running_var", "running_var"))}
-    for kind, ks in keys.items():
-        n_moved, n = moved(ks)
-        check(n_moved == n > 0, f"only {n_moved} of {n} {kind} changed")
+    for kind, suffix in kinds:
+        n_moved, n = moved([k for k in before if k.endswith(suffix)])
+        check(n_moved == n > 0, f"{label}: only {n_moved} of {n} {kind} changed")
     ema_moved = sum(not torch.equal(before[k], v) for k, v in state.ema.ema.items() if v.is_floating_point())
     check(ema_moved > 0 and all(bool(torch.isfinite(v).all()) for v in state.ema.ema.values()
-                                if v.is_floating_point()), "the EMA did not move or is not finite")
+                                if v.is_floating_point()), f"{label}: the EMA did not move or is not finite")
     check(all(bool(torch.isfinite(v).all()) for v in after.values() if v.is_floating_point()),
-          "a parameter or BatchNorm statistic is not finite")
-    print(f"train state: every conv/bn weight and BatchNorm statistic moved, {ema_moved} EMA tensors moved, "
+          f"{label}: a parameter or BatchNorm statistic is not finite")
+    print(f"{label} state: every {', '.join(kind for kind, _ in kinds)} moved, {ema_moved} EMA tensors moved, "
           f"all finite; step {state.step}", flush=True)
-
-    out = dict(step_ms=step_ms, img_s=bs / step_ms * 1e3, peak_memory_gb=peak_gb, losses=losses)
     if not on_card:
         return launches, out
 
-    out["profile"] = profile_train_step(step, batch)
-
-    # one step through the kernel and one through its plain version, from the same state
-    saved = copy.deepcopy((model.state_dict(), optimizer.state_dict()))
-    results = {}
-    for label, fn in (("kernel", conv3x3_bn_stats), ("plain", conv3x3_bn_stats_plain)):
-        model.load_state_dict(saved[0])
-        optimizer.load_state_dict(copy.deepcopy(saved[1]))  # loading shares the tensors it is given
-        m = make_train_step(model, loss_cfg, optimizer, state=state, bn_stats_fn=fn)(*batch)
-        results[label] = (float(m["loss"]), float(m["grad_norm"]))
-    (loss_k, norm_k), (loss_p, norm_p) = results["kernel"], results["plain"]
-    print(f"train step, kernel vs plain conv+statistics from one state: loss {loss_k:.5f} vs {loss_p:.5f}, "
-          f"grad norm {norm_k:.4f} vs {norm_p:.4f}", flush=True)
-    check(abs(loss_k - loss_p) <= 5e-3 * abs(loss_p), f"losses differ: {loss_k} vs {loss_p} (rtol 5e-3)")
-    check(abs(norm_k - norm_p) <= 2e-2 * abs(norm_p), f"grad norms differ: {norm_k} vs {norm_p} (rtol 2e-2)")
-    out.update(kernel_vs_plain=dict(loss=(loss_k, loss_p), grad_norm=(norm_k, norm_p)))
+    out["profile"] = profile_train_step(step, batch, label=label)
+    out["kernel_vs_plain"] = steps_against_plain(model, loss_cfg, optimizer, state, batch, convs_per_step, label)
     return launches, out
+
+
+def steps_against_plain(model, loss_cfg, optimizer, state, batch, convs, label):
+    """K3 against its plain version inside a train run, continued from its
+    state (the path's launches are counted by then). From each of
+    STATES_AGAINST_PLAIN states, one float32 step through K3 (its f32
+    route) and one through the plain version: loss and grad norm within
+    F32_STEP_LIMITS; then the run's own bf16 step. The first of those records each K3 call's inputs, and K3
+    (the bf16 kernel the path runs) is held against the plain version on them
+    at K3_LIMITS: that is the gate on the path's own kernel.
+
+    The whole steps are compared in float32, not bf16: a bf16 step's grad
+    norm moves with any rounding difference. Over ten states each of yolov5s
+    (two seeds) and yolov3 on an H100 (scripts/train_step_spread.py) the bf16
+    step through K3 against the plain one differed by 0.04-7.4%, and two plain
+    steps whose weights differ only by their bf16 rounding by 0.1-8.5%."""
+    from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats, conv3x3_bn_stats_plain
+    from yolov3_tpu_torch.train.step import make_train_step
+
+    calls = []
+
+    def recording(x, w):  # the inputs as the kernel takes them under autocast
+        calls.append((x.detach().to(torch.bfloat16), w.detach().to(torch.bfloat16)))
+        return conv3x3_bn_stats(x, w)
+
+    rows = []
+    for k in range(STATES_AGAINST_PLAIN):
+        saved = copy.deepcopy((model.state_dict(), optimizer.state_dict()))
+        res = {}
+        for route, fn in (("kernel", conv3x3_bn_stats), ("plain", conv3x3_bn_stats_plain)):
+            model.load_state_dict(saved[0])
+            optimizer.load_state_dict(copy.deepcopy(saved[1]))  # loading shares the tensors it is given
+            m = make_train_step(model, loss_cfg, optimizer, state=state, bn_stats_fn=fn,
+                                compute_dtype=torch.float32)(*batch)
+            res[route] = (float(m["loss"]), float(m["grad_norm"]))
+        model.load_state_dict(saved[0])
+        optimizer.load_state_dict(copy.deepcopy(saved[1]))
+        make_train_step(model, loss_cfg, optimizer, state=state,
+                        bn_stats_fn=recording if k == 0 else conv3x3_bn_stats)(*batch)  # the run's bf16 step
+        (loss_k, norm_k), (loss_p, norm_p) = res["kernel"], res["plain"]
+        rows.append(dict(loss=(loss_k, loss_p), grad_norm=(norm_k, norm_p),
+                         loss_rel=abs(loss_k - loss_p) / abs(loss_p), norm_rel=abs(norm_k - norm_p) / abs(norm_p)))
+        print(f"{label} state {k}, a float32 step through K3 and through the plain version: loss {loss_k:.6f} vs "
+              f"{loss_p:.6f} ({rows[-1]['loss_rel']:.2e}), grad norm {norm_k:.5f} vs {norm_p:.5f} "
+              f"({rows[-1]['norm_rel']:.2e})", flush=True)
+        check(rows[-1]["loss_rel"] <= F32_STEP_LIMITS["loss_rtol"],
+              f"{label} state {k}: losses differ: {loss_k} vs {loss_p} (rtol {F32_STEP_LIMITS['loss_rtol']})")
+        check(rows[-1]["norm_rel"] <= F32_STEP_LIMITS["norm_rtol"],
+              f"{label} state {k}: grad norms differ: {norm_k} vs {norm_p} (rtol {F32_STEP_LIMITS['norm_rtol']})")
+
+    lim = K3_LIMITS[torch.bfloat16]
+    check(len(calls) == convs, f"{label}: {len(calls)} K3 calls recorded in a step, expected {convs}")
+    per_call = []
+    with torch.no_grad():
+        for x, w in calls:
+            (y_k, mean_k, var_k), (y_p, mean_p, var_p) = conv3x3_bn_stats(x, w), conv3x3_bn_stats_plain(x, w)
+            y_bad = int(((y_k.float() - y_p.float()).abs() > lim["y_atol"] + lim["y_rtol"] * y_p.float().abs()).sum())
+            mean_err = float((mean_k - mean_p).abs().max())
+            var_err = float(((var_k - var_p).abs() / var_p.abs().clamp(min=1e-12)).max())
+            shape = "x".join(map(str, x.shape))
+            check(y_bad == 0 and mean_err <= lim["mean_atol"] and var_err <= lim["var_rtol"],
+                  f"{label}: K3 on the step's input {shape}: {y_bad} elements of y out, mean err {mean_err}, "
+                  f"var rel err {var_err}")
+            per_call.append(dict(x=shape, route=conv3x3_bn_stats.last_route,
+                                 y_max_abs_err=float((y_k.float() - y_p.float()).abs().max()),
+                                 mean_abs_err=mean_err, var_rel_err=var_err))
+    if per_call:
+        print(f"{label}: K3 against its plain version on the bf16 step's own {len(per_call)} inputs: all within "
+              f"K3_LIMITS; y max abs err {max(r['y_max_abs_err'] for r in per_call):.3g}, mean err "
+              f"{max(r['mean_abs_err'] for r in per_call):.3g}, var rel err "
+              f"{max(r['var_rel_err'] for r in per_call):.3g}", flush=True)
+    return dict(states=rows, per_call=per_call)
 
 
 REMAT_VARIANTS = (("off", {}), ("whole-body", dict(remat=True)), ("until-7", dict(remat=True, remat_until=7)))
@@ -1444,7 +1587,6 @@ TRAINER_IMGSZ = 640
 TRAINER_BS = 16
 TRAINER_WORKERS = 8
 TRAINER_EPOCHS = 2
-YOLOV3_K3_CONVS = 33  # stride-1 3x3 convs of yolov3: K3 launches in each train step
 
 
 class EpochClock:
@@ -1967,8 +2109,86 @@ def phase_detect(gpu):
                 autoshape_launches=auto_launches, val=val, load_ms=dict(mean=load_mean, **load_ms), load_split_ms=split)
 
 
+ZOO_SERVE = {"yolov5s": (32, 3)}  # (batch, batches served); the other two serve one batch of 8
+ZOO_TRAIN_STEPS = 5  # yolov5s trains 1 + 5 steps; the other two take one step
+
+
+def phase_zoo(rng):
+    """The YOLOv5s family at its published widths (YOLOV5_MODELS: ultralytics/yolov5
+    v6.0+ models/yolov5s.yaml, hub/yolov5s-transformer.yaml, hub/yolov5s-ghost.yaml),
+    nc 80, seeded random weights, 640 px.
+
+    yolov5s (7,235,389 parameters), its BatchNorm statistics taken from the
+    frames (`settle_bn`) and detections planted on the head for the served
+    frames (`plant_under_topk`): three batches of 32 served through build_batched_infer (BN
+    folded, bf16), three K2 launches and one K1 launch a batch, the detections
+    equal to the plain score and NMS functions, ms a batch; then a fresh
+    yolov5s through phase_train as yolov3 (SGD, bf16 autocast, one seeded
+    batch of 8) for 1 + 5 steps: 11 K3 launches a step (its C3 bottlenecks'
+    stride-1 3x3 convs), and K3 held against its plain version from the
+    run's states (`steps_against_plain`).
+
+    yolov5s-transformer (a C3TR) and yolov5s-ghost (GhostConv, C3Ghost): one
+    fused batch of 8 each (K2 3, K1 1, equal to the plain path) and one
+    phase_train step each (steps=0), K3 launched 10 and 0 times. yolov5s-ghost exists only in the
+    port: the JAX package's parser counts no GhostConv stride, so its Detect
+    strides come to 0 and the JAX model cannot be built."""
+    from yolov3_tpu_torch.models.detection import DetectionModel
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
+    from yolov3_tpu_torch.ops.score_cuda import masked_scores
+    from yolov3_tpu_torch.serve import build_batched_infer
+
+    results, launches = {}, {}
+    for name, cfg in YOLOV5_MODELS.items():
+        model = DetectionModel.from_config(cfg, seed=0)  # on the card
+        n_params = model.num_params()
+        check(YOLOV5_PARAMS.get(name, n_params) == n_params, f"{name} has {n_params} parameters")
+        check(model.spec.strides == (8, 16, 32), f"{name}: Detect strides {model.spec.strides}")
+        bs, n_batches = ZOO_SERVE.get(name, (8, 1))
+        frames = rng.integers(0, 256, size=(bs, 640, 640, 3), dtype=np.uint8)
+        settle_bn(model, frames[:8])
+        targets, counts = plant_under_topk(model, frames)
+        print(f"{name}: detections planted at targets {[round(t, 2) for t in targets]} cells an image by scale; "
+              "above conf 0.25 (f32 eval) by scale, median / max over the frames: "
+              + ", ".join(f"{int(np.median(c))} / {int(c.max())}" for c in counts), flush=True)
+        infer = build_batched_infer(model)
+        imgs = torch.as_tensor(frames, device="cuda")
+        infer(imgs)  # warm-up: cuDNN picks its algorithms
+        torch.cuda.synchronize()
+
+        # --- the served path: every launch from here to the count read is the path's own
+        greedy_nms.launches = 0
+        masked_scores.launches = 0
+        for _ in range(n_batches):
+            infer(imgs)
+        torch.cuda.synchronize()
+        served = {"greedy_nms": greedy_nms.launches, "masked_scores": masked_scores.launches}
+        # --- end of the served path
+
+        check(infer.fallbacks == 0, f"{name}: a served batch took the full-decode fallback")
+        check(served == {"greedy_nms": n_batches, "masked_scores": 3 * n_batches},
+              f"{name}: launches {served} in {n_batches} served batches")
+        row = dict(params=n_params, batch=bs, serve_launches=served,
+                   fast_path=check_fast_path(infer, model, imgs, f"{name} fast path"))
+        msg = f"{name} serving: {n_params} parameters, {n_batches} batches of {bs} at 640 px, launches {served}"
+        if name in ZOO_SERVE:
+            row["batch_ms"] = cuda_ms(lambda: infer(imgs)[0], iters=10)
+            row["img_s"] = bs / row["batch_ms"] * 1e3
+            msg += (f"; {row['batch_ms']:.3f} ms per batch of {bs} = {row['img_s']:.1f} img/s "
+                    "(device-synchronised, inputs on the card)")
+        print(msg, flush=True)
+        del infer, model, imgs
+
+        steps = ZOO_TRAIN_STEPS if name in ZOO_SERVE else 0
+        k3, row["train"] = phase_train(rng, DetectionModel.from_config(cfg, seed=0), steps=steps,
+                                       convs_per_step=YOLOV5_K3_CONVS[name], label=name)
+        launches[name] = dict(served, conv3x3_bn_stats=k3)
+        results[name] = row
+    return launches, results
+
+
 def phase_kernel_times(rng, tag):
-    """K3 at yolov3's six shapes (batch 8, bf16, the weight as nn.modules.Conv
+    """K3 at the timed shapes, yolov3's six and yolov5s's four (batch 8, bf16, the weight as nn.modules.Conv
     hands it over), K1 at NMS_SHAPES and K2 at yolov3@640's three scales
     (batch 32, bf16; each scale and the three together): device ms by kernel
     name and ms by CUDA events, each on its own line after `tag`. The first K3
@@ -2002,6 +2222,45 @@ def phase_kernel_times(rng, tag):
         dev = device_ms(run, SCORE_KERNEL, per_call=len(fs))
         ev = cuda_ms(run, iters=50)
         print(f"{tag} K2 {label}: device {dev:.4f} ms, events {ev:.4f} ms", flush=True)
+
+
+# The YOLOv5 family's small model as ultralytics/yolov5 (v6.0 and later) publishes it,
+# models/yolov5s.yaml, written out here (the JAX package ships no such YAML):
+# 7,235,389 parameters at nc 80.
+YOLOV5_ANCHORS = [[10, 13, 16, 30, 33, 23], [30, 61, 62, 45, 59, 119], [116, 90, 156, 198, 373, 326]]
+YOLOV5S = {
+    "name": "yolov5s", "nc": 80, "depth_multiple": 0.33, "width_multiple": 0.50, "anchors": YOLOV5_ANCHORS,
+    "backbone": [[-1, 1, "Conv", [64, 6, 2, 2]], [-1, 1, "Conv", [128, 3, 2]], [-1, 3, "C3", [128]],
+                 [-1, 1, "Conv", [256, 3, 2]], [-1, 6, "C3", [256]], [-1, 1, "Conv", [512, 3, 2]],
+                 [-1, 9, "C3", [512]], [-1, 1, "Conv", [1024, 3, 2]], [-1, 3, "C3", [1024]],
+                 [-1, 1, "SPPF", [1024, 5]]],
+    "head": [[-1, 1, "Conv", [512, 1, 1]], [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
+             [[-1, 6], 1, "Concat", [1]], [-1, 3, "C3", [512, False]],
+             [-1, 1, "Conv", [256, 1, 1]], [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
+             [[-1, 4], 1, "Concat", [1]], [-1, 3, "C3", [256, False]],
+             [-1, 1, "Conv", [256, 3, 2]], [[-1, 14], 1, "Concat", [1]], [-1, 3, "C3", [512, False]],
+             [-1, 1, "Conv", [512, 3, 2]], [[-1, 10], 1, "Concat", [1]], [-1, 3, "C3", [1024, False]],
+             [[17, 20, 23], 1, "Detect", ["nc", "anchors"]]],
+}
+# ultralytics/yolov5 models/hub/yolov5s-transformer.yaml: yolov5s with a C3TR as layer 8 (7,038,013 parameters)
+YOLOV5S_TRANSFORMER = {**YOLOV5S, "name": "yolov5s-transformer",
+                       "backbone": [*YOLOV5S["backbone"][:8], [-1, 3, "C3TR", [1024]], YOLOV5S["backbone"][9]]}
+
+
+def _ghost(rows):
+    return [[f, n, {"Conv": "GhostConv", "C3": "C3Ghost"}.get(op, op) if i else op, args]
+            for i, (f, n, op, args) in rows]
+
+
+# ultralytics/yolov5 models/hub/yolov5s-ghost.yaml: GhostConv for every Conv but the 6x6 stem and
+# C3Ghost for every C3. The JAX package cannot build it: its parser counts no GhostConv stride, so
+# the Detect strides come to 0 (a ZeroDivisionError in detect_head.py)
+YOLOV5S_GHOST = {**YOLOV5S, "name": "yolov5s-ghost", "backbone": _ghost(enumerate(YOLOV5S["backbone"])),
+                 "head": _ghost((1, row) for row in YOLOV5S["head"])}
+YOLOV5_MODELS = {"yolov5s": YOLOV5S, "yolov5s-transformer": YOLOV5S_TRANSFORMER, "yolov5s-ghost": YOLOV5S_GHOST}
+YOLOV5_PARAMS = {"yolov5s": 7235389, "yolov5s-transformer": 7038013}
+# K3 launches a train step: the C3 bottlenecks' stride-1 3x3 convs (C3TR and C3Ghost have none)
+YOLOV5_K3_CONVS = {"yolov5s": 11, "yolov5s-transformer": 10, "yolov5s-ghost": 0}
 
 
 def main(argv=()):
@@ -2054,6 +2313,7 @@ def main(argv=()):
     launches["conv3x3_bn_stats"], train = phase_train(rng, DetectionModel.from_config("yolov3", seed=0))
     remat = phase_remat()
     trainer_launches, trainer = phase_trainer()
+    zoo_launches, zoo = phase_zoo(rng)
 
     serving = nms_rows["serving"]
     kernels = [
@@ -2068,25 +2328,27 @@ def main(argv=()):
              merge_launches=merge["launches"]["greedy_nms"], save_hybrid_launches=hybrid["launches"]["greedy_nms"],
              detect_launches={k: v["launches"]["greedy_nms"] for k, v in detect["runs"].items()},
              detect_autoshape_launches=detect["autoshape_launches"], detect_val_launches=detect["val"]["launches"],
-             detect_shape=detect["k1"]),
+             detect_shape=detect["k1"], zoo_launches={k: v["greedy_nms"] for k, v in zoo_launches.items()}),
         dict(name="masked_scores", route="cuda", source="yolov3_tpu_torch/csrc/score.cu",
              replaces="yolov3_tpu/ops/score_pallas.py:43", launches=launches["masked_scores"],
              max_abs_err=score["max_abs_err"], ms=score["ms"], plain_ms=score["plain_ms"],
              bound_ms=score["bound_ms"], bound_by=score["bound_by"], library_ms=None,
              trainer_serve_launches=trainer["serve_launches"]["masked_scores"],
              http_launches=http["launches"]["masked_scores"],
-             fast_false_launches=fast_false["launches"]["masked_scores"]),
+             fast_false_launches=fast_false["launches"]["masked_scores"],
+             zoo_launches={k: v["masked_scores"] for k, v in zoo_launches.items()}),
         dict(name="conv3x3_bn_stats", route="cuda", source="yolov3_tpu_torch/csrc/conv_bn.cu",
              replaces="yolov3_tpu/ops/conv_bn_pallas.py:33", launches=launches["conv3x3_bn_stats"],
              **{k: conv_rows[K3_MAIN_SHAPE][k]
                 for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
              trainer_launches=trainer_launches["conv3x3_bn_stats"],
-             remat_launches_per_step={k: v["k3_per_step"] for k, v in remat.items()}),
+             remat_launches_per_step={k: v["k3_per_step"] for k, v in remat.items()},
+             zoo_launches={k: v["conv3x3_bn_stats"] for k, v in zoo_launches.items()}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"nms_shapes": nms_rows, "conv_bn_shapes": conv_rows, "main_path": e2e, "http": http,
                       "fast_false": fast_false, "val": val, "merge": merge, "save_hybrid": hybrid, "train": train,
-                      "remat": remat, "trainer": trainer, "jpeg": jpeg, "detect": detect}))
+                      "remat": remat, "trainer": trainer, "jpeg": jpeg, "detect": detect, "zoo": zoo}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

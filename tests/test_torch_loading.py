@@ -54,13 +54,16 @@ def reference_state_dict(seed=0):
     return sd
 
 
-def module_tree(sd):
-    """A torch module tree holding `sd`, its classes in modules `models.yolo` / `models.common`."""
+def module_tree(sd, cfg=None):
+    """A torch module tree holding `sd`, its classes in modules `models.yolo` /
+    `models.common`; the top module carries `cfg` as its `yaml`, as the reference's does."""
     yolo, common = types.ModuleType("models.yolo"), types.ModuleType("models.common")
     node = type("Conv", (nn.Module,), {"__module__": "models.common"})
     top = type("DetectionModel", (nn.Module,), {"__module__": "models.yolo"})
     common.Conv, yolo.DetectionModel = node, top
     root = top()
+    if cfg is not None:
+        root.yaml = cfg
     for k, v in sd.items():
         *path, leaf = k.split(".")
         m = root
@@ -75,14 +78,14 @@ def module_tree(sd):
     return root, {"models": types.ModuleType("models"), "models.yolo": yolo, "models.common": common}
 
 
-def write_pt(path, form, sd):
+def write_pt(path, form, sd, cfg=None):
     path.parent.mkdir(parents=True, exist_ok=True)
     if form == "state_dict":
         torch.save(sd, path)
     elif form == "fp16":
         torch.save({"epoch": -1, "ema": None, "model": {k: v.half() for k, v in sd.items()}}, path)
     else:
-        tree, mods = module_tree(sd)
+        tree, mods = module_tree(sd, cfg)
         saved = {k: sys.modules.get(k) for k in mods}
         sys.modules.update(mods)
         try:

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from yolov3_tpu.train import optim as jax_optim
-from yolov3_tpu_torch.models.convert import jax_path_to_key
+from yolov3_tpu_torch.models.convert import from_jax_variables
 from yolov3_tpu_torch.train import optim as port_optim
 
 HYP = {"lr0": 0.01, "lrf": 0.1, "momentum": 0.9, "weight_decay": 0.05, "warmup_epochs": 0.0,
@@ -48,12 +48,7 @@ def jax_tree(rng):
 
 def to_port(tree):
     """{port key: OIHW / vector numpy array} of a JAX parameter tree."""
-    out = {}
-    for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
-        names = tuple(str(p.key) for p in path)
-        a = np.asarray(leaf)
-        out[jax_path_to_key("params", names)] = a.transpose(3, 2, 0, 1) if names[-1] == "kernel" else a
-    return out
+    return {k: v.numpy() for k, v in from_jax_variables({"params": tree}).items()}
 
 
 def make_port_params(tree):

@@ -8,6 +8,19 @@ yolov3_tpu/models/convert.py:torch_key_to_path.
   batch_stats/l{i}/bn/{mean,var}        model.{i}.bn.running_{mean,var}
   params/l{i}_{r}/cv1/...  (repeats)    model.{i}.{r}.cv1...
   params/l{last}/m{k}/{kernel,bias}     model.{last}.m.{k}.{weight,bias}
+  .../m{k}/... (C3, MixConv2d)          ....m.{k}....
+  .../dw/conv (DWConv)                  ....conv
+  GhostBottleneck gc1 / dw / gc2        conv.0 / conv.1 / conv.2
+                  dws / sc (s=2)        shortcut.0 / shortcut.1 (sc at s=1 keeps its name)
+  .../tr{i}/... (TransformerBlock)      ....tr.{i}....
+  Dense kernel (in, out)                Linear weight (out, in)
+  dwt{i}/{kernel,bias} (per group)      one grouped, spatially flipped weight and bias
+  w (Sum), p1 / p2 / beta (1,1,1,c)     w, p1 / p2 / beta (1,c,1,1)
+
+Where the JAX package's own `torch_key_to_path` maps the reference's keys
+right, this is its exact inverse; for DWConv, GhostBottleneck and
+TransformerBlock (whose reference keys it cannot map) the port's forward on
+the carried variables equals the JAX forward.
 
 Training state (yolov3_tpu/train/step.py's state pytree) is carried across
 the same way: `from_jax_train_state` flattens it to
@@ -24,7 +37,7 @@ the same way: `from_jax_train_state` flattens it to
   ema/updates, step, balance
 
 Reference torch checkpoints (`.pt`) share the port's key names, so
-`load_torch_state_dict` (the EMA weights, else the model's, of a pickled
+`load_torch_checkpoint` (the EMA weights, else the model's, of a pickled
 module, a state dict or a module tree unpickled through stub classes) and
 `match_torch_state_dict` load them with `load_state_dict`.
 
@@ -48,39 +61,79 @@ _LEAF = {
     ("params", "kernel"): "weight",
     ("params", "scale"): "weight",
     ("params", "bias"): "bias",
+    ("params", "w"): "w",  # Sum
+    ("params", "p1"): "p1",  # AconC / MetaAconC
+    ("params", "p2"): "p2",
+    ("params", "beta"): "beta",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
+# a GhostBottleneck's JAX scopes -> the reference's keys (`sc` too when `dws` is beside it: s=2)
+_GHOST = {"gc1": ("conv", "0"), "dw": ("conv", "1"), "gc2": ("conv", "2"), "dws": ("shortcut", "0")}
 
 
-def _flatten(tree, path=()):
-    for k, v in tree.items():
-        if isinstance(v, dict) or hasattr(v, "items"):
-            yield from _flatten(v, path + (k,))
+def _child_parts(name, scope):
+    """Port key parts of the child `name` of the JAX module scope `scope`."""
+    if "gc1" in scope:  # GhostBottleneck
+        if name == "sc" and "dws" in scope:
+            return ("shortcut", "1")
+        if name in _GHOST:
+            return _GHOST[name]
+    if name == "dw" and ("conv" in scope[name] or "bn" in scope[name]):
+        return ()  # DWConv's inner Conv: the port's DWConv is that Conv
+    m = re.fullmatch(r"(m|tr)(\d+)", name)  # Detect / C3 / MixConv2d's m{k}, TransformerBlock's tr{i}
+    return (m.group(1), m.group(2)) if m else (name,)
+
+
+def _leaf(coll, name, a):
+    """(port leaf name, array in the port's layout) of a JAX leaf."""
+    if (coll, name) not in _LEAF:
+        raise KeyError(f"no port name for the JAX leaf {coll}/{name}")
+    a = np.asarray(a, dtype=np.float32)
+    if name == "kernel":  # conv (kh, kw, I, O) -> (O, I, kh, kw); Dense (in, out) -> Linear (out, in)
+        a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+    elif name in ("p1", "p2", "beta"):
+        a = a.transpose(0, 3, 1, 2)  # (1, 1, 1, c) -> (1, c, 1, 1)
+    return _LEAF[(coll, name)], a
+
+
+def _transposed_conv(scope):
+    """A DWConvTranspose2d's per-group flax ConvTranspose scopes (`dwt`, or
+    `dwt{i}`, kernels (k, k, in/g, out/g)) -> its one grouped weight
+    (in, out/g, k, k), flipped in space (see nn.modules.DWConvTranspose2d),
+    and the groups' biases concatenated."""
+    groups = [scope[k] for k in sorted(scope, key=lambda k: int(k[3:] or 0))]
+    w = [np.asarray(g["kernel"], np.float32).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1] for g in groups]
+    return {"weight": np.concatenate(w), "bias": np.concatenate([np.asarray(g["bias"], np.float32) for g in groups])}
+
+
+def _entries(coll, scope, parts=()):
+    """(port key, array) of every leaf of one JAX module scope, the key under `parts`."""
+    if scope and all(re.fullmatch(r"dwt\d*", k) for k in scope):
+        for leaf, a in _transposed_conv(scope).items():
+            yield ".".join(parts + (leaf,)), a
+        return
+    for name, child in scope.items():
+        if hasattr(child, "items"):
+            yield from _entries(coll, child, parts + _child_parts(name, scope))
         else:
-            yield path + (k,), v
+            leaf, a = _leaf(coll, name, child)
+            yield ".".join(parts + (leaf,)), a
 
 
-def jax_path_to_key(collection, path):
-    """('params', ('l4_1', 'cv1', 'conv', 'kernel')) -> 'model.4.1.cv1.conv.weight'."""
-    layer, *mods, leaf = path
-    m = re.fullmatch(r"l(\d+)(?:_(\d+))?", layer)
-    if m is None or (collection, leaf) not in _LEAF:
-        raise KeyError(f"no port key for {collection}/{'/'.join(path)}")
-    parts = ["model", m.group(1)] + ([m.group(2)] if m.group(2) is not None else [])
-    for mod in mods:
-        mk = re.fullmatch(r"m(\d+)", mod)
-        parts += ["m", mk.group(1)] if mk else [mod]
-    return ".".join(parts + [_LEAF[(collection, leaf)]])
+def _tensor(a):
+    return torch.tensor(np.ascontiguousarray(a))
 
 
 def _collection_to_state_dict(coll, tree):
+    """A JAX model's collection ({l{i} or l{i}_{r}: scope}) -> {model.{i}[.{r}].<key>: tensor}."""
     sd = {}
-    for path, v in _flatten(tree):
-        a = np.asarray(v, dtype=np.float32)
-        if path[-1] == "kernel":
-            a = a.transpose(3, 2, 0, 1)  # (kh,kw,I,O) -> (O,I,kh,kw)
-        sd[jax_path_to_key(coll, path)] = torch.tensor(a)
+    for layer, scope in tree.items():
+        m = re.fullmatch(r"l(\d+)(?:_(\d+))?", layer)
+        if m is None:
+            raise KeyError(f"no port key for the JAX scope {coll}/{layer}")
+        prefix = ("model", m.group(1)) + ((m.group(2),) if m.group(2) is not None else ())
+        sd.update({k: _tensor(a) for k, a in _entries(coll, scope, prefix)})
     return sd
 
 
@@ -90,6 +143,13 @@ def from_jax_variables(variables):
     for coll in ("params", "batch_stats"):
         sd.update(_collection_to_state_dict(coll, variables.get(coll, {})))
     return sd
+
+
+def from_jax_module_variables(variables):
+    """One JAX module's {params, batch_stats} (a module of nn/modules.py or
+    nn/activations.py applied on its own) -> the state dict of its port
+    module, keys relative to it."""
+    return {k: _tensor(a) for coll in ("params", "batch_stats") for k, a in _entries(coll, variables.get(coll, {}))}
 
 
 def load_jax_variables(model, variables):
@@ -250,12 +310,14 @@ def load_jax_train_state(train_state, state):
 _SKIPPED_LEAVES = ("num_batches_tracked", "anchors", "anchor_grid", "stride")
 
 
-def load_torch_state_dict(path):
-    """A reference .pt -> flat {name: float32 CPU tensor}: the EMA weights
-    when the checkpoint has them, else its model's (reference
-    experimental.py:105), from a pickled module, a state dict, or a module
-    tree whose classes are not importable (unpickled through stub classes).
-    fp16 tensors are cast to float32."""
+def load_torch_checkpoint(path):
+    """A reference .pt -> (flat {name: float32 CPU tensor}, the model's cfg
+    dict or None). The tensors: the EMA weights when the checkpoint has them,
+    else its model's (reference experimental.py:105), from a pickled module,
+    a state dict, or a module tree whose classes are not importable
+    (unpickled through stub classes); fp16 tensors are cast to float32. The
+    cfg: a pickled reference model keeps the one it was built from as its
+    `yaml` attribute (reference yolo.py:193-200); a bare state dict has none."""
     try:
         ckpt = torch.load(path, map_location="cpu", weights_only=False)
     except (ModuleNotFoundError, AttributeError) as e:
@@ -264,14 +326,18 @@ def load_torch_state_dict(path):
     obj = ckpt
     if isinstance(ckpt, dict):
         obj = ckpt.get("ema") or ckpt.get("model") or ckpt
+    cfg = None
     if hasattr(obj, "state_dict"):
         sd = obj.state_dict()
     elif not isinstance(obj, dict):  # a stub module with _parameters / _buffers / _modules
         sd = _walk_stub_state_dict(obj)
     else:
         sd = obj
-    return {k: (v.detach().float() if v.is_floating_point() else v.detach()).cpu()
-            for k, v in sd.items() if isinstance(v, torch.Tensor)}
+    if not isinstance(obj, dict):
+        cfg = getattr(obj, "__dict__", {}).get("yaml")
+    sd = {k: (v.detach().float() if v.is_floating_point() else v.detach()).cpu()
+          for k, v in sd.items() if isinstance(v, torch.Tensor)}
+    return sd, (dict(cfg) if isinstance(cfg, dict) else None)
 
 
 def _load_with_stubs(path):

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import inspect
 import math
 
 import numpy as np
@@ -29,19 +30,23 @@ from yolov3_tpu_torch.models.detect_head import Detect, decode_predictions, dete
 from yolov3_tpu_torch.models.fuse import fuse_state_dict
 from yolov3_tpu_torch.models.spec import ModelSpec, parse_spec
 from yolov3_tpu_torch.nn import activations
-from yolov3_tpu_torch.nn.modules import CHANNEL_OPS, MODULE_REGISTRY, MULTI_INPUT_OPS, Conv, recomputing
+from yolov3_tpu_torch.nn.activations import AconC, MetaAconC
+from yolov3_tpu_torch.nn.modules import INPUT_CHANNEL_OPS, MODULE_REGISTRY, MULTI_INPUT_OPS, Conv, recomputing
 from yolov3_tpu_torch.utils.general import select_device
 
 
 def _build_layer(spec: ModelSpec, ls, fused):
+    """The module of one spec layer: cls(*args), or cls(c1, *args) for the ops
+    that need their input channels, with `fused` for those that fold a BN;
+    n > 1 stacks repeats (reference yolo.py:370), repeat r > 0 reading r-1."""
     cls = MODULE_REGISTRY[ls.op]
-    if ls.op not in CHANNEL_OPS:
-        return cls(*ls.args) if ls.n == 1 else nn.Sequential(*(cls(*ls.args) for _ in range(ls.n)))
-    c1 = spec.out_channels(ls.f[0])
+    kw = {"fused": fused} if "fused" in inspect.signature(cls).parameters else {}
+    if ls.op not in INPUT_CHANNEL_OPS:
+        return cls(*ls.args, **kw) if ls.n == 1 else nn.Sequential(*(cls(*ls.args, **kw) for _ in range(ls.n)))
+    c1, c2 = spec.out_channels(ls.f[0]), spec.out_channels(ls.i)
     if ls.n == 1:
-        return cls(c1, *ls.args, fused=fused)
-    # stacked repeats (reference yolo.py:370): repeat r > 0 reads repeat r-1
-    return nn.Sequential(*(cls(c1 if r == 0 else ls.c2, *ls.args, fused=fused) for r in range(ls.n)))
+        return cls(c1, *ls.args, **kw)
+    return nn.Sequential(*(cls(c1 if r == 0 else c2, *ls.args, **kw) for r in range(ls.n)))
 
 
 class DetectionModel(nn.Module):
@@ -79,15 +84,24 @@ class DetectionModel(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator):
-        """Conv kernels U(±1/sqrt(fan_in)) (torch's Conv2d default, the JAX
-        package's conv init); BN identity; Detect kernels N(0, 1/fan_in) and
-        the objectness/class prior bias."""
-        for m in self.modules():
-            if isinstance(m, Conv):
-                w = m.conv.weight
-                bound = 1.0 / math.sqrt(w[0].numel())
-                w.uniform_(-bound, bound, generator=generator)
+        """Every draw from `generator`, in module order: conv, transposed-conv
+        and linear weights U(±1/sqrt(fan_in)) (torch's Conv2d default, the JAX
+        package's conv init) and their biases 0 (flax's); ACON's p1 / p2
+        N(0, 1) and beta 1; BN identity; Sum's w its -arange(1, n) / 2; Detect
+        kernels N(0, 1/fan_in) and the objectness/class prior bias."""
         detect = self.model[-1]
+        head = {id(conv) for conv in detect.m}
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) and id(m) not in head:
+                bound = 1.0 / math.sqrt(m.weight[0].numel())
+                m.weight.uniform_(-bound, bound, generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, (AconC, MetaAconC)):
+                m.p1.normal_(generator=generator)
+                m.p2.normal_(generator=generator)
+                if isinstance(m, AconC):
+                    m.beta.fill_(1.0)
         for conv, s in zip(detect.m, detect.strides):
             conv.weight.normal_(0.0, 1.0 / math.sqrt(conv.weight[0].numel()), generator=generator)
             conv.bias.copy_(detect_bias(detect.nc, detect.na, s))

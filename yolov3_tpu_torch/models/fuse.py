@@ -5,7 +5,9 @@ At inference BatchNorm with running stats is a per-channel affine:
     bias'   = beta - mean * gamma / sqrt(var + eps)
 `fuse_state_dict` folds every `<p>.conv` / `<p>.bn` pair of a state dict in
 float32 and casts back to the weight's dtype; the `fused=True` modules
-consume the result.
+consume the result. A BN with no sibling conv (the standalone BN over the
+concat of BottleneckCSP and MixConv2d) stays as it is, with its running
+statistics, as the JAX package's `fuse_variables` keeps it.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ BN_EPS = 1e-3  # must match nn.modules.Conv's BatchNorm epsilon
 def fuse_state_dict(sd):
     """Fold every conv+bn pair of `sd`; returns (fused state dict, pairs folded).
     The result shares no storage with `sd`."""
-    prefixes = [k[: -len("bn.running_mean")] for k in sd if k.endswith("bn.running_mean")]
+    prefixes = [k[: -len("bn.running_mean")] for k in sd
+                if k.endswith("bn.running_mean") and k[: -len("bn.running_mean")] + "conv.weight" in sd]
     fused = {k: v.detach().clone() for k, v in sd.items()}
     for p in prefixes:
         w = sd[p + "conv.weight"]

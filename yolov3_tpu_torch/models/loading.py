@@ -8,7 +8,7 @@ from pathlib import Path
 
 import torch
 
-from yolov3_tpu_torch.models.convert import load_torch_state_dict, match_torch_state_dict
+from yolov3_tpu_torch.models.convert import load_torch_checkpoint, match_torch_state_dict
 from yolov3_tpu_torch.models.detection import DetectionModel
 from yolov3_tpu_torch.utils.general import LOGGER, select_device
 
@@ -18,9 +18,11 @@ def load_weights(weights, ch=3, nc=None, device=None):
     raises without one).
 
     A directory with checkpoint.yaml: a port checkpoint (EMA weights when it
-    has them). A `.pt`: a reference checkpoint, its architecture the cfg
-    named by the file's stem (yolov3, yolov3-spp, yolov3-tiny; another stem
-    assumes yolov3); it raises when more tensors fail to load than load. A
+    has them). A `.pt`: a reference checkpoint, its architecture the cfg its
+    pickled model carries (the reference model's `yaml`: a YOLOv5 or any
+    other zoo model), else the cfg named by the file's stem (yolov3,
+    yolov3-spp, yolov3-tiny; another stem assumes yolov3); it raises when
+    more tensors fail to load than load. A
     missing `.pt` raises: nothing is downloaded. Anything else: a cfg name or
     YAML path (seeded random weights). ch / nc apply to cfg and .pt builds."""
     from yolov3_tpu_torch.utils.checkpoint import load_model_from_checkpoint
@@ -33,14 +35,17 @@ def load_weights(weights, ch=3, nc=None, device=None):
             raise FileNotFoundError(f"{p} does not exist; weights are never downloaded (this runs offline): "
                                     "copy the reference .pt to this path, or pass a port checkpoint or a cfg")
         device = select_device(device)
-        if "yolov3" in p.stem:
+        sd, cfg = load_torch_checkpoint(p)
+        if cfg is not None:
+            cfg = {"name": p.stem, **cfg}
+        elif "yolov3" in p.stem:
             cfg = p.stem
         else:
             cfg = "yolov3"
             LOGGER.warning(f"cannot infer the architecture from '{p.name}' — assuming the flagship "
                            "yolov3 cfg; rename the file to its cfg (e.g. yolov3-tiny.pt) if wrong")
         model = DetectionModel.from_config(cfg, ch=ch, nc=nc, device="cpu")
-        matched, missed = match_torch_state_dict(model, load_torch_state_dict(p))
+        matched, missed = match_torch_state_dict(model, sd)
         if len(missed) > len(matched):
             # a mostly-random model that "works" is worse than an error
             raise ValueError(f"{p}: {len(missed)} tensors failed to convert (only {len(matched)} matched) — "

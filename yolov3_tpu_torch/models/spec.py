@@ -1,5 +1,8 @@
 """Declarative model spec + parser: YAML -> static layer graph
-(yolov3_tpu/models/spec.py, restricted to the ops in nn.modules.MODULE_REGISTRY).
+(yolov3_tpu/models/spec.py). For any config the JAX parser handles, the spec
+is the JAX one (layers, args, channels, strides, save list), with one
+exception: GhostConv's stride counts here (a fault of the JAX parser, whose
+Detect strides come to 0 for yolov5s-ghost).
 
 Two YAML schemas are accepted:
   - native: a `layers:` list of {from, n, op, args} dicts;
@@ -12,7 +15,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any
 
-from yolov3_tpu_torch.nn.modules import CHANNEL_OPS, MODULE_REGISTRY
+from yolov3_tpu_torch.nn.modules import CHANNEL_OPS, MODULE_REGISTRY, REPEAT_ARG_OPS
 from yolov3_tpu_torch.utils.general import LOGGER, make_divisible, yaml_load
 
 CONFIG_DIR = Path(__file__).parent / "configs"
@@ -48,6 +51,10 @@ class ModelSpec:
     strides: tuple  # per-scale strides, e.g. (8, 16, 32)
     activation: Any = None  # override of the default SiLU
     meta: tuple = field(default_factory=tuple)
+    # per-layer output channels as the tensors have them; `LayerSpec.c2` is the
+    # JAX parser's count, which has Contract, Expand and DWConvTranspose2d keep
+    # their input's channels (its modules read the channels off the tensor)
+    channels: tuple = field(default=(), compare=False)
 
     @property
     def na(self):
@@ -67,14 +74,19 @@ class ModelSpec:
                 for a, s in zip(self.anchors, self.strides)]
 
     def out_channels(self, j):
-        """Channels of layer j's output (j = -1: the input image)."""
-        return self.ch_in if j < 0 else self.layers[j].c2
+        """Channels of layer j's output as the tensor has them (j = -1: the input image)."""
+        return self.ch_in if j < 0 else self.channels[j]
 
 
 # spatial stride effect: op -> callable(args) -> downsampling factor
 _STRIDE_FNS = {
     "Conv": lambda a: a[2] if len(a) > 2 else 1,
+    "DWConv": lambda a: a[2] if len(a) > 2 else 1,
+    "GhostConv": lambda a: a[2] if len(a) > 2 else 1,  # missing from the JAX parser's table
+    "Focus": lambda a: 2 * (a[2] if len(a) > 2 else 1),
     "MaxPool": lambda a: a[1] if len(a) > 1 else a[0],
+    "Contract": lambda a: a[0] if a else 2,
+    "GhostBottleneck": lambda a: a[2] if len(a) > 2 else 1,
 }
 
 _REF_NAME_MAP = {  # reference YAML module spellings -> registry names
@@ -138,7 +150,8 @@ def parse_spec(cfg, ch=3, nc=None, anchors=None, activation=None) -> ModelSpec:
     no = na * (nc + 5)
     symbols = {"nc": nc, "anchors": anchors}
 
-    channels = [ch]
+    channels = [ch]  # the JAX parser's count (LayerSpec.c2)
+    real = [ch]  # the tensors' (ModelSpec.channels)
     layers: list[LayerSpec] = []
     save: set[int] = set()
     strides = [1]  # per-layer cumulative stride (index 0 = input)
@@ -167,16 +180,26 @@ def parse_spec(cfg, ch=3, nc=None, anchors=None, activation=None) -> ModelSpec:
         if op not in MODULE_REGISTRY:
             raise KeyError(f"unknown op {op!r} at layer {i}; registry has {sorted(MODULE_REGISTRY)}")
 
-        c1 = channels[f_abs[0] + 1]
+        c1, r1 = channels[f_abs[0] + 1], real[f_abs[0] + 1]
         if op in CHANNEL_OPS:
             c2 = args[0]
             if c2 != no:
                 c2 = make_divisible(c2 * gw, 8)
             args = [c2, *args[1:]]
+            if op in REPEAT_ARG_OPS:  # the repeats become the module's own
+                args.insert(1, n)
+                n = 1
+            r2 = c2
         elif op == "Concat":
             c2 = sum(channels[x + 1] for x in f_abs)
+            r2 = sum(real[x + 1] for x in f_abs)
         else:
-            c2 = c1
+            c2, r2 = c1, r1
+            if op in ("Contract", "Expand"):
+                g = args[0] if args else 2
+                r2 = r1 * g * g if op == "Contract" else r1 // (g * g)
+            elif op == "DWConvTranspose2d":
+                r2 = args[0]
 
         scale = _STRIDE_FNS.get(op, lambda a: 1)(args)
         stride = strides[f_abs[0] + 1]
@@ -191,6 +214,7 @@ def parse_spec(cfg, ch=3, nc=None, anchors=None, activation=None) -> ModelSpec:
                 save.add(x)
         layers.append(LayerSpec(i, f_abs, n, op, _tuplify(args), c2, stride))
         channels.append(c2)
+        real.append(r2)
         strides.append(stride)
 
     if detect_from is None:
@@ -218,4 +242,5 @@ def parse_spec(cfg, ch=3, nc=None, anchors=None, activation=None) -> ModelSpec:
         anchors=_tuplify(anchors),
         strides=tuple(int(s) for s in det_strides),
         activation=act,
+        channels=tuple(real[1:]),
     )

@@ -248,7 +248,10 @@ def compute_loss(feats, targets, mask, cfg: LossConfig, balance=None, return_per
 
         # classification
         if cfg.nc > 1:
-            tc = F.one_hot(t["tcls"].reshape(-1), cfg.nc).float() * (cp - cn) + cn
+            # the targets in the head's dtype, at least f32: a float64 model's are float64, as
+            # the JAX package's one_hot gives under x64 (its logits stay f32 there too)
+            tc = F.one_hot(t["tcls"].reshape(-1), cfg.nc).to(torch.promote_types(pi.dtype, torch.float32)) \
+                * (cp - cn) + cn
             cls_loss = bce_with_logits(psel[:, 5:], tc, cfg.cls_pw)
             if cfg.fl_gamma > 0:
                 cls_loss = focal_modulation(psel[:, 5:], tc, cls_loss, cfg.fl_gamma)

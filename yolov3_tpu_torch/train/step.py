@@ -99,7 +99,8 @@ def make_train_step(model, loss_cfg: LossConfig, optimizer, state: TrainState | 
         imgs = torch.as_tensor(imgs, device=device)
         with record_function("train_step/forward"), \
                 torch.autocast(device.type, dtype=compute_dtype if autocast else None, enabled=autocast):
-            feats = model(normalize_images(imgs, compute_dtype), **remat_kw)
+            # without autocast the images are normalised in the model's own dtype, as in the JAX step
+            feats = model(normalize_images(imgs, compute_dtype if autocast else model.dtype), **remat_kw)
         with record_function("train_step/loss"):
             loss, comps, obj_pl = compute_loss(feats, targets, mask, loss_cfg,
                                                balance=state.balance if autobalance else None,

@@ -21,6 +21,7 @@ from pathlib import Path
 
 import torch
 
+from yolov3_tpu_torch.nn.modules import REPEAT_ARG_OPS
 from yolov3_tpu_torch.utils.general import LOGGER, check_git_info, yaml_load, yaml_save
 
 
@@ -100,7 +101,10 @@ def strip_checkpoint(path, out=None):
 
 
 def spec_to_dict(spec):
-    """A ModelSpec as a YAML dict that parse_spec loads back."""
+    """A ModelSpec as a YAML dict that parse_spec loads back. A repeat-arg op
+    (C3, BottleneckCSP, ...) holds its repeats as its second arg and n = 1;
+    they go back to `n`, where parse_spec takes them from (the JAX package's
+    spec_to_dict writes them twice, so a C3 comes back with n = 1)."""
     return {
         "name": spec.name,
         "nc": spec.nc,
@@ -112,9 +116,9 @@ def spec_to_dict(spec):
         "layers": [
             {
                 "from": list(ls.f) if len(ls.f) > 1 else (ls.f[0] - ls.i if ls.f[0] != ls.i - 1 else -1),
-                "n": ls.n,
+                "n": ls.args[1] if ls.op in REPEAT_ARG_OPS else ls.n,
                 "op": ls.op,
-                "args": _de_tuple(ls.args),
+                "args": _de_tuple((ls.args[0], *ls.args[2:]) if ls.op in REPEAT_ARG_OPS else ls.args),
             }
             for ls in spec.layers[:-1]
         ]
