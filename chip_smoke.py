@@ -42,6 +42,16 @@ Phases, each printing its result on its own line:
      then merge-NMS through K1 against the plain NMS on two val frames (one
      inside merge's 3000-candidate gate, one outside), and
      validator.run(save_hybrid=True) through K1 against the plain NMS;
+ 7b. export and backends (phase_export) on the served model as a port
+     checkpoint: export.run to pt2 (f32, dynamic batch), pt2 with nms, pt2
+     --half and onnx on the card; MultiBackend of each against the
+     in-process model on the val batch of 32 (f32 decode 2e-3 / 1e-3, half
+     and nms detections at the NMS bars, K1 once an nms call); validator.run
+     through MultiBackend(pt2) and (onnx) (K1 once a batch, mAP50 within
+     0.005); benchmarks.run over checkpoint, pt2 and onnx; a pt2 exported
+     on the CPU moved to the card; ms per batch of 32 and val img/s of each;
+     phase 9 adds detect through a pt2 of its weights (K1 once an image,
+     rows equal to detect through the checkpoint in f32);
   8. the train path: the same model in train mode, SGD with the default
      hyper-parameters, 1 + 10 steps on one seeded batch of 8 640x640 images
      with 8 boxes each; finite falling loss, moved parameters, BatchNorm
@@ -756,6 +766,188 @@ def phase_val(rng, model):
     out.update(launches=launches, route=route, n_labels=n_labels, n_images=n_imgs,
                profile=profile_val_batch(model, batches[0][0], kw))
     return out, batches
+
+
+EXPORT_NMS = dict(conf_thres=0.25, iou_thres=0.45, max_det=300, max_nms=8192)  # export.ServingModule's NMS
+EXPORT_ARTIFACTS = (  # name -> export.run arguments; every artifact at 640 px, exported on the card
+    ("pt2", dict(include=("pt2",), batch=32, dynamic=True)),
+    ("pt2_nms", dict(include=("pt2",), batch=32, dynamic=True, nms=True)),
+    ("pt2_half", dict(include=("pt2",), batch=32, dynamic=True, half=True)),
+    ("onnx", dict(include=("onnx",), batch=32, dynamic=True)),
+)
+
+
+def phase_export(model, batches, gpu):
+    """Export and backends on the serving phase's planted yolov3@640, saved as a
+    port checkpoint: export.run to pt2 (f32, dynamic batch), pt2 with nms,
+    pt2 --half and onnx on the card (seconds and MB each; a None is a
+    failure). On the val phase's 32-frame 640x640 batch, MultiBackend of the
+    f32 pt2 and the onnx against decode_predictions(model(x)) in f32 (atol
+    2e-3, rtol 1e-3); the half pt2's detections after batched_nms against
+    the in-process bf16 model's (NMS bars); the nms pt2 launches K1 once a
+    call on its shared-memory route, its detections equal to the plain NMS
+    on the same predictions; validator.run through MultiBackend(pt2) and
+    (onnx) over that batch: K1 once a batch (global-memory route), mAP50
+    within 0.005 of the in-process f32 validator's; benchmarks.run over
+    checkpoint, pt2 and onnx of those frames written as PNGs, every row
+    filled, the artifacts' mAP50-95 within 0.005 of the checkpoint's model
+    validated on square batches (the checkpoint row's rect batches
+    letterbox these frames to 672 px). A pt2
+    exported on the CPU is moved to the card by MultiBackend (or refused,
+    with its message, where this torch cannot move it). Times: ms per batch
+    of 32 of each backend and of the in-process f32 model, val img/s."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from yolov3_tpu_torch import export
+    from yolov3_tpu_torch.cli import benchmarks
+    from yolov3_tpu_torch.data import image_ops
+    from yolov3_tpu_torch.eval import validator
+    from yolov3_tpu_torch.models.backend import MultiBackend
+    from yolov3_tpu_torch.models.detect_head import decode_predictions
+    from yolov3_tpu_torch.models.detection import DetectionModel, optimize_for_inference
+    from yolov3_tpu_torch.ops.boxes import xywh2xyxy, xyxy2xywh
+    from yolov3_tpu_torch.ops.nms import batched_nms
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms, greedy_nms_plain
+    from yolov3_tpu_torch.utils.checkpoint import save_checkpoint
+    from yolov3_tpu_torch.utils.general import file_size, yaml_save
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_export_"))
+    ckpt = save_checkpoint(tmp / "ckpt", {"model": model.state_dict()}, spec=model.spec)
+    arts, exports = {}, {}
+    for name, kw in EXPORT_ARTIFACTS:
+        t0 = time.perf_counter()
+        art = export.run(str(ckpt), imgsz=640, out_dir=tmp / name, **kw)[kw["include"][0]]
+        check(art is not None, f"export {name} failed (try_export returned None)")
+        arts[name] = art
+        exports[name] = dict(s=time.perf_counter() - t0, mb=file_size(art))
+    print("export on the card: " + ", ".join(f"{k} {v['s']:.2f} s {v['mb']:.1f} MB" for k, v in exports.items())
+          + f" on {gpu}", flush=True)
+
+    imgs, targets, mask, shapes = batches[0]
+    check(imgs.shape == (32, 640, 640, 3) and shapes[0] is None, f"val batch {imgs.shape} is not 32 square frames")
+    x = torch.as_tensor(imgs, device=model.device)
+    backends = {k: MultiBackend(arts[k]) for k in ("pt2", "pt2_nms", "pt2_half", "onnx")}
+    with torch.inference_mode():
+        ref = decode_predictions(model(x.float() / 255.0), model.anchors_px, model.spec.strides)
+        bf16 = optimize_for_inference(model, bf16=True)
+        ref_half = decode_predictions(bf16(x.float() / 255.0), bf16.anchors_px, bf16.spec.strides)
+    err = {}
+    for k in ("pt2", "onnx"):
+        got = backends[k](x)
+        check(got.dtype == torch.float32 and got.shape == ref.shape, f"MultiBackend({k}) gave {got.shape} {got.dtype}")
+        err[k] = float((got - ref).abs().max())
+        check(torch.allclose(got, ref, atol=2e-3, rtol=1e-3), f"MultiBackend({k}) differs from the in-process f32 "
+              f"decode by up to {err[k]}")
+
+    with torch.inference_mode():  # the half artifact against the in-process bf16 model, after the serving NMS
+        dets_h, n_h = batched_nms(backends["pt2_half"](x), **EXPORT_NMS)
+        dets_r, n_r = batched_nms(ref_half, **EXPORT_NMS)
+    n_h, n_r = n_h.cpu().numpy(), n_r.cpu().numpy()
+    check(np.array_equal(n_h, n_r), f"half pt2 counts {n_h.tolist()} differ from the bf16 model's {n_r.tolist()}")
+    half_err = [check_dets(dets_h[i, :k].cpu().numpy(), dets_r[i, :k].cpu().numpy(), f"half pt2 image {i}")
+                for i, k in enumerate(n_h)]
+    del bf16
+
+    reset_kernel_counts()  # the nms pt2: K1 once a call, the same as the plain NMS on the same predictions
+    for _ in range(2):
+        out, n = backends["pt2_nms"](x)
+    torch.cuda.synchronize()
+    nms_launches, route = kernel_counts(), greedy_nms.last_route
+    check(nms_launches == {"greedy_nms": 2, "masked_scores": 0, "conv3x3_bn_stats": 0},
+          f"pt2 with nms: launches {nms_launches} for 2 calls")
+    check("shared memory" in route, f"pt2 with nms: K1 took [{route}]")
+    with torch.inference_mode():
+        out_p, n_p = batched_nms(backends["pt2"](x), nms_fn=greedy_nms_plain, **EXPORT_NMS)
+    check(torch.equal(n, n_p), f"pt2 with nms: n {n.tolist()} vs plain {n_p.tolist()}")
+    for i, k in enumerate(n.tolist()):
+        check_dets(out[i, :k].cpu().numpy(), out_p[i, :k].cpu().numpy(), f"pt2 with nms image {i}")
+
+    def call(b):
+        return lambda: b(x)
+
+    with torch.inference_mode():
+        times = {"in-process f32": cuda_ms(lambda: decode_predictions(model(x.float() / 255.0), model.anchors_px,
+                                                                      model.spec.strides), iters=5)}
+        times.update({k: cuda_ms(call(b), iters=5) for k, b in backends.items()})
+    print("backends on the val batch of 32 at 640: f32 pt2 / onnx within "
+          + ", ".join(f"{k} {v:.2e}" for k, v in err.items()) + " of the in-process f32 decode; half pt2 detections "
+          f"({int(n_h.sum())}) equal to the bf16 model's (box err {max(e[0] for e in half_err):.4f}, conf err "
+          f"{max(e[1] for e in half_err):.2e}); nms pt2 K1 launches {nms_launches['greedy_nms']} for 2 calls [{route}], "
+          f"detections equal to the plain NMS ({int(n.sum())}); ms per batch of 32: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + f" on {gpu}", flush=True)
+
+    val = {}
+    ref_results = validator.run(model=model, dataloader=[batches[0]])[0]
+    for k in ("pt2", "onnx"):
+        validator.run(model=backends[k], dataloader=[batches[0]])  # warm-up: cuDNN picks its algorithms
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        results = validator.run(model=backends[k], dataloader=[batches[0]])[0]
+        wall = time.perf_counter() - t0
+        launches, val_route = kernel_counts(), greedy_nms.last_route
+        check(launches == {"greedy_nms": 1, "masked_scores": 0, "conv3x3_bn_stats": 0},
+              f"val through MultiBackend({k}): launches {launches} for 1 batch")
+        check("global memory" in val_route, f"val through MultiBackend({k}): K1 took [{val_route}]")
+        check(abs(results[2] - ref_results[2]) <= 0.005, f"val through MultiBackend({k}): mAP50 {results[2]} vs "
+              f"{ref_results[2]} in process")
+        val[k] = dict(map50=float(results[2]), map=float(results[3]), img_s=len(imgs) / wall, launches=launches)
+    print(f"val through MultiBackend over the val batch: in-process f32 mAP50 {ref_results[2]:.4f}; "
+          + ", ".join(f"{k} mAP50 {v['map50']:.4f} mAP50-95 {v['map']:.4f}, {v['img_s']:.1f} img/s, K1 "
+                      f"{v['launches']['greedy_nms']}" for k, v in val.items()) + f" on {gpu}", flush=True)
+    del backends
+
+    root = tmp / "frames"  # the val batch on disk for benchmarks: PNGs and labels clipped to the frame
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    for i in range(len(imgs)):
+        lb = targets[i][mask[i]]
+        xyxy = np.clip(xywh2xyxy(lb[:, 1:5]), 0.0, 1.0)
+        image_ops.imwrite_png(root / "images" / f"{i:03d}.png", np.ascontiguousarray(imgs[i][:, :, ::-1]), 1)
+        (root / "labels" / f"{i:03d}.txt").write_text("".join(
+            f"{int(c)} {x:.6f} {y:.6f} {w:.6f} {h:.6f}\n" for c, (x, y, w, h) in zip(lb[:, 0], xyxy2xywh(xyxy))))
+    yaml_save(root / "dataset.yaml", dict(path=str(root), train="images", val="images",
+                                          names={i: str(i) for i in range(80)}))
+    cwd = os.getcwd()
+    os.chdir(tmp)  # benchmarks exports to runs/export under the working directory
+    try:
+        t0 = time.perf_counter()
+        rows = benchmarks.run(str(ckpt), data=str(root / "dataset.yaml"), imgsz=640, batch_size=32)
+        bench_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    check([r[0] for r in rows] == ["checkpoint", "pt2", "onnx"] and all(v is not None for r in rows for v in r),
+          f"benchmarks rows {rows}")
+    # the checkpoint row validates with rect batches (pad 0.5: these 640 px frames at 672), the artifacts' rows
+    # with square ones (the non-native path): the artifacts are held to the checkpoint's model on square batches
+    square = validator.run(str(root / "dataset.yaml"), model=model, batch_size=32, imgsz=640, rect=False)[0]
+    check(all(abs(r[2] - square[3]) <= 0.005 for r in rows[1:]) and rows[0][2] >= 0.9,
+          f"benchmarks mAP50-95 {[r[2] for r in rows]}, the checkpoint's model on square batches {square[3]}")
+    print(f"benchmarks ({bench_s:.1f} s): " + "; ".join(f"{f} {mb:.1f} MB mAP50-95 {m:.4f} {ms:.2f} ms/img"
+                                                      for f, mb, m, ms in rows)
+          + f"; the checkpoint's model on square batches mAP50-95 {square[3]:.4f} on {gpu}", flush=True)
+
+    cpu_art = export.run("yolov3-tiny", include=("pt2",), imgsz=640, batch=2, dynamic=True, out_dir=tmp / "cpu",
+                         device="cpu")["pt2"]  # exported on the CPU, served on the card
+    check(cpu_art is not None, "the CPU pt2 export failed")
+    try:
+        moved = MultiBackend(cpu_art)
+        with torch.inference_mode():
+            got = moved(x[:2])
+            want = export.ServingModule(DetectionModel.from_config("yolov3-tiny"))(x[:2])
+        check(got.device.type == "cuda" and torch.allclose(got, want, atol=2e-3, rtol=1e-3),
+              "a pt2 exported on the CPU and moved to the card differs from the model on the card")
+        moved_to = "moved to the card, equal to the model there"
+    except RuntimeError as e:
+        check("cannot be moved" in str(e), f"a CPU pt2 on the card: {e}")
+        moved_to = f"refused: {e}"
+    print(f"a pt2 exported on the CPU: {moved_to}", flush=True)
+    return dict(exports=exports, max_abs_err=err, half_n=int(n_h.sum()), nms_launches=nms_launches["greedy_nms"],
+                nms_route=route, ms_per_batch=times, val=val, in_process_map50=float(ref_results[2]),
+                benchmarks=[list(r) for r in rows], benchmarks_square_map=float(square[3]), benchmarks_s=bench_s,
+                cpu_pt2=moved_to)
 
 
 # (h, w) of the HTTP phase's BGR frames: letterbox and scale_boxes run on all but the square one
@@ -2061,6 +2253,44 @@ def phase_detect(gpu):
     check(n_rows == sum(runs["ckpt"]["n"]) and crops == len(pairs), f"{n_rows} txt rows, {crops} crops, "
           f"{sum(runs['ckpt']['n'])} detections, {len(pairs)} (image, class) pairs")
 
+    # the same weights exported to a pt2 (f32, dynamic batch) through cli.detect: K1 once an image, the rows of
+    # detect through the checkpoint in f32 (half=False: the artifact's dtype). detect folds the checkpoint's
+    # BatchNorms, so the pt2 is exported from the folded weights (a fused checkpoint): the unfolded graph's
+    # rounding differs, and near-equal scores then swap rows
+    from yolov3_tpu_torch import export
+    from yolov3_tpu_torch.models.loading import load_weights
+
+    fused = export.export_checkpoint(load_weights(str(ckpt)).fuse(), tmp / "fused")
+    check(fused is not None, "detect: the fused checkpoint export failed")
+    pt2 = export.run(str(fused), include=("pt2",), imgsz=DETECT_IMGSZ, dynamic=True, out_dir=tmp / "export")["pt2"]
+    check(pt2 is not None, "detect: the pt2 export failed")
+    f32_rows, pt2_launches = {}, {}
+    for name, weights in (("ckpt_f32", ckpt), ("pt2", pt2)):
+        reset_kernel_counts()
+        save_dir = detect_cli.run(weights=str(weights), source=str(src), imgsz=(DETECT_IMGSZ, DETECT_IMGSZ),
+                                  half=False, save_txt=True, save_conf=True, nosave=True, project=str(tmp / "runs"),
+                                  name=name, exist_ok=True)
+        torch.cuda.synchronize()
+        pt2_launches[name] = kernel_counts()["greedy_nms"]
+        check(pt2_launches[name] == len(files), f"detect {name}: {pt2_launches[name]} K1 launches for {len(files)} "
+              "images")
+        f32_rows[name] = {t.stem: np.loadtxt(t, ndmin=2) for t in sorted((Path(save_dir) / "labels").glob("*.txt"))}
+    check(f32_rows["pt2"].keys() == f32_rows["ckpt_f32"].keys() and f32_rows["pt2"], "detect pt2: other images")
+    n_pt2 = 0
+    for stem, want in f32_rows["ckpt_f32"].items():
+        got = f32_rows["pt2"][stem]
+        same = got.shape == want.shape
+        check(same and np.array_equal(got[:, 0], want[:, 0])
+              and np.abs(got[:, 1:5] - want[:, 1:5]).max(initial=0) <= 1e-4
+              and np.abs(got[:, 5] - want[:, 5]).max(initial=0) <= 1e-3, f"detect pt2 {stem}: rows differ from the "
+              f"checkpoint's in f32 ({len(got)} / {len(want)} rows; classes equal "
+              f"{same and np.array_equal(got[:, 0], want[:, 0])}, xywh err "
+              f"{np.abs(got[:, 1:5] - want[:, 1:5]).max(initial=0) if same else None})")
+        n_pt2 += len(got)
+    print(f"detect through a pt2 of the same weights: {len(files)} images, {n_pt2} rows equal to detect through the "
+          f"checkpoint in f32 (classes equal, xywh within 1e-4 of the image, conf 1e-3), K1 launches "
+          f"{pt2_launches['pt2']} on {gpu}", flush=True)
+
     # K1 at the detect shape: the first image's candidates (B=1, K as the CLI gives it, max_det 1000)
     captured = []
 
@@ -2106,7 +2336,8 @@ def phase_detect(gpu):
                                          for k, v in runs.items()},
                 k1=dict(B=B, K=K, max_det=1000, route=route, n=int(n_k[0]), ms=k1_ms, plain_ms=k1_plain_ms,
                         bound_ms=k1_bound_ms, bound_by=k1_bound_by),
-                autoshape_launches=auto_launches, val=val, load_ms=dict(mean=load_mean, **load_ms), load_split_ms=split)
+                autoshape_launches=auto_launches, val=val, load_ms=dict(mean=load_mean, **load_ms), load_split_ms=split,
+                pt2_launches=pt2_launches["pt2"], pt2_rows=n_pt2)
 
 
 ZOO_SERVE = {"yolov5s": (32, 3)}  # (batch, batches served); the other two serve one batch of 8
@@ -2307,6 +2538,7 @@ def main(argv=()):
     val, val_batches = phase_val(rng, model)
     merge = phase_merge(model, val_batches[0][0][:8])
     hybrid = phase_save_hybrid(model, val_batches, val["f32"]["map50"])
+    exported = phase_export(model, val_batches, gpu)
     del model, val_batches  # its head carries the planted detections; the trainer starts from the seeded init
     jpeg = phase_jpeg(gpu)
     detect = phase_detect(gpu)
@@ -2328,7 +2560,10 @@ def main(argv=()):
              merge_launches=merge["launches"]["greedy_nms"], save_hybrid_launches=hybrid["launches"]["greedy_nms"],
              detect_launches={k: v["launches"]["greedy_nms"] for k, v in detect["runs"].items()},
              detect_autoshape_launches=detect["autoshape_launches"], detect_val_launches=detect["val"]["launches"],
-             detect_shape=detect["k1"], zoo_launches={k: v["greedy_nms"] for k, v in zoo_launches.items()}),
+             detect_shape=detect["k1"], zoo_launches={k: v["greedy_nms"] for k, v in zoo_launches.items()},
+             export_nms_launches_per_call=exported["nms_launches"] / 2,
+             export_val_launches={k: v["launches"]["greedy_nms"] for k, v in exported["val"].items()},
+             detect_pt2_launches=detect["pt2_launches"]),
         dict(name="masked_scores", route="cuda", source="yolov3_tpu_torch/csrc/score.cu",
              replaces="yolov3_tpu/ops/score_pallas.py:43", launches=launches["masked_scores"],
              max_abs_err=score["max_abs_err"], ms=score["ms"], plain_ms=score["plain_ms"],
@@ -2348,7 +2583,8 @@ def main(argv=()):
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"nms_shapes": nms_rows, "conv_bn_shapes": conv_rows, "main_path": e2e, "http": http,
                       "fast_false": fast_false, "val": val, "merge": merge, "save_hybrid": hybrid, "train": train,
-                      "remat": remat, "trainer": trainer, "jpeg": jpeg, "detect": detect, "zoo": zoo}))
+                      "remat": remat, "trainer": trainer, "jpeg": jpeg, "detect": detect, "zoo": zoo,
+                      "export": exported}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

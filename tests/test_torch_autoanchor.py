@@ -7,6 +7,7 @@ import pytest
 
 from yolov3_tpu.models.spec import parse_spec as jax_parse_spec
 from yolov3_tpu.utils import autoanchor as jax_autoanchor
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.models.spec import parse_spec
 from yolov3_tpu_torch.utils import autoanchor
 

@@ -28,6 +28,7 @@ from yolov3_tpu.models.detection import YOLOGraph
 from yolov3_tpu.models.ensemble import attempt_load as jax_attempt_load
 from yolov3_tpu.models.spec import parse_spec as jax_parse_spec
 from yolov3_tpu.utils.general import LOGGER as JAX_LOGGER
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch import hub
 from yolov3_tpu_torch.data import image_ops
 from yolov3_tpu_torch.eval import validator

@@ -12,6 +12,7 @@ import yaml
 from yolov3_tpu.models.detection import DetectionModel as JaxModel
 from yolov3_tpu.utils.checkpoint import save_checkpoint as jax_save_checkpoint
 from yolov3_tpu.utils.checkpoint import spec_to_dict as jax_spec_to_dict
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.models.detection import DetectionModel
 from yolov3_tpu_torch.models.spec import parse_spec
 from yolov3_tpu_torch.train.loss import LossConfig

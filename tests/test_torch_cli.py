@@ -28,6 +28,7 @@ import yolov3_tpu.utils.general as jax_general
 from test_torch_detect import planted_state_dict, write_pt
 from yolov3_tpu.models.detection import DetectionModel as JaxModel
 from yolov3_tpu.utils.checkpoint import save_checkpoint as jax_save_checkpoint
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.cli import detect, train, val
 from yolov3_tpu_torch.data import synthetic
 from yolov3_tpu_torch.models.convert import load_jax_variables

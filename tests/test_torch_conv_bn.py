@@ -11,6 +11,7 @@ import torch
 
 from yolov3_tpu.nn.modules import Conv as JaxConv
 from yolov3_tpu.ops.conv_bn_pallas import conv3x3_bn_stats as jax_conv3x3_bn_stats
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.models.detection import DetectionModel
 from yolov3_tpu_torch.models.spec import parse_spec
 from yolov3_tpu_torch.nn.modules import Conv

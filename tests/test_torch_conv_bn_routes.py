@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from yolov3_tpu.ops.conv_bn_pallas import conv3x3_bn_stats as jax_conv3x3_bn_stats
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.ops.conv_bn_cuda import ROUTES, conv3x3_bn_stats, conv3x3_bn_stats_plain, route_name
 
 

@@ -28,6 +28,7 @@ from yolov3_tpu.train import optim as jax_optim
 from yolov3_tpu.train.loss import LossConfig as JaxLossConfig
 from yolov3_tpu.train.step import init_train_state as jax_init_train_state
 from yolov3_tpu.train.step import make_train_step as jax_make_train_step
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.models.convert import (flatten_optimizer, flatten_train_state, from_jax_opt_state,
                                              from_jax_train_state, load_jax_opt_state, load_jax_train_state,
                                              load_jax_variables)

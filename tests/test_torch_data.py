@@ -20,6 +20,7 @@ import yaml
 from yolov3_tpu.data import datasets as jax_datasets
 from yolov3_tpu.data.augment import mixup as jax_mixup
 from yolov3_tpu.data.augment import mosaic4 as jax_mosaic4
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.data import augment, datasets, synthetic
 from yolov3_tpu_torch.data.dataset_yaml import check_dataset
 

@@ -26,6 +26,7 @@ import yolov3_tpu.cli.detect as jax_detect
 from yolov3_tpu.models.loading import load_weights as jax_load_weights
 from yolov3_tpu.utils.checkpoint import save_checkpoint as jax_save_checkpoint
 from yolov3_tpu.utils.general import LOGGER as JAX_LOGGER
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.cli import detect
 from yolov3_tpu_torch.data import image_ops
 from yolov3_tpu_torch.models.detection import DetectionModel
@@ -173,8 +174,10 @@ def test_detect_classes_agnostic_matches_jax(setup, monkeypatch):
 def test_detect_refusals(setup, tmp_path):
     with pytest.raises(NotImplementedError, match="item 5"):
         detect.run(weights=str(setup["pt"]), visualize=True, device="cpu", project=str(tmp_path))
-    for artifact in ("m.stablehlo", "m.tflite", "m.onnx"):
-        with pytest.raises(NotImplementedError, match="item 6"):
+    # exported .pt2 / .onnx run through MultiBackend (tests/test_torch_backend.py); what the port does not read raises
+    for artifact, error, match in (("m.stablehlo", ValueError, "pt2"), ("m.tflite", NotImplementedError, "item 11"),
+                                   ("m.onnx", FileNotFoundError, "sidecar")):
+        with pytest.raises(error, match=match):
             detect.run(weights=artifact, device="cpu", project=str(tmp_path))
     assert detect.DEFAULT_SOURCE.endswith("yolov3_tpu_torch/data/images")
     assert len(list(Path(detect.DEFAULT_SOURCE).glob("*.jpg"))) == 2

@@ -15,6 +15,7 @@ import pytest
 import yaml
 
 from yolov3_tpu.train import evolve as jax_evolve
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.data import synthetic
 from yolov3_tpu_torch.train import evolve
 

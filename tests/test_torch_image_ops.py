@@ -13,6 +13,7 @@ import cv2
 import numpy as np
 import pytest
 
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.data import image_ops
 from yolov3_tpu_torch.data.augment import letterbox, rotation_matrix
 

@@ -23,6 +23,8 @@ TRAIN_MODULES = ("train/__init__.py", "train/loss.py", "train/optim.py", "train/
 IMAGE_LIBRARIES = {"cv2", "PIL"}
 DETECT_MODULES = ("data/loaders.py", "utils/plots.py", "models/loading.py", "models/ensemble.py",
                   "models/autoshape.py", "hub.py", "cli/__init__.py", "cli/detect.py", "cli/val.py", "cli/train.py")
+EXPORT_MODULES = ("export.py", "models/backend.py", "models/onnx_native.py", "models/onnx_runtime.py",
+                  "cli/benchmarks.py")
 
 
 def imported_roots(path):
@@ -60,6 +62,11 @@ def test_walk_covers_the_detect_modules():
     assert set(DETECT_MODULES) <= walked
 
 
+def test_walk_covers_the_export_modules():
+    walked = {str(p.relative_to(ROOT / "yolov3_tpu_torch")) for p in PORT_FILES[:-1]}
+    assert set(EXPORT_MODULES) <= walked
+
+
 def test_detect_import_loads_no_jax_cv2_or_pil():
     modules = ", ".join("yolov3_tpu_torch." + m[:-3].replace("/", ".").replace(".__init__", "")
                         for m in DETECT_MODULES)
@@ -94,6 +101,10 @@ def test_trainer_import_loads_no_jax_cv2_or_pil():
     code = (f"import sys, {modules}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('cv2', 'PIL')); assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_export_import_loads_no_jax():
+    _assert_import_loads_no_jax(", ".join("yolov3_tpu_torch." + m[:-3].replace("/", ".") for m in EXPORT_MODULES))
 
 
 def test_eval_import_loads_no_jax():

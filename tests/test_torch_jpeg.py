@@ -23,6 +23,7 @@ import cv2
 import numpy as np
 import pytest
 
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.data import image_ops
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import chip_smoke
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.models.detection import DetectionModel
 from yolov3_tpu_torch.models.spec import parse_spec
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 from yolov3_tpu.data.loaders import LoadImages as JaxLoadImages
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.data import loaders
 from yolov3_tpu_torch.data.loaders import VID_FORMATS, LoadImages
 

@@ -26,6 +26,7 @@ import torch.nn as nn
 
 from yolov3_tpu.models.detection import DetectionModel as JaxModel
 from yolov3_tpu.models.loading import load_weights as jax_load_weights
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.models.detection import DetectionModel
 from yolov3_tpu_torch.models.loading import load_weights
 from yolov3_tpu_torch.serve import load_weights as serve_load_weights

@@ -12,6 +12,7 @@ import torch
 from yolov3_tpu.models.spec import parse_spec as jax_parse_spec
 from yolov3_tpu.ops.boxes import bbox_iou as jax_bbox_iou
 from yolov3_tpu.train import loss as jax_loss
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.models.spec import parse_spec
 from yolov3_tpu_torch.ops.boxes import bbox_iou
 from yolov3_tpu_torch.train import loss as port_loss

@@ -14,6 +14,7 @@ import yaml
 
 from yolov3_tpu.models.convert import torch_key_to_path
 from yolov3_tpu.models.detection import DetectionModel as JaxModel
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.models.convert import from_jax_variables, load_jax_variables
 from yolov3_tpu_torch.models.detection import DetectionModel
 from yolov3_tpu_torch.models.fuse import fuse_state_dict

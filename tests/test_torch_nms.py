@@ -15,6 +15,7 @@ import torch
 from yolov3_tpu.ops.nms import _greedy_nms
 from yolov3_tpu.ops.nms import batched_nms as jax_batched_nms
 from yolov3_tpu.ops.nms_pallas import pallas_greedy_nms
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.ops.nms import MAX_WH, batched_nms, nms_from_candidates
 from yolov3_tpu_torch.ops.nms_cuda import greedy_nms, greedy_nms_plain
 

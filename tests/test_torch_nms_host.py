@@ -14,6 +14,7 @@ import torch
 
 from yolov3_tpu.ops.nms import batched_nms as jax_batched_nms
 from yolov3_tpu.ops.nms import non_max_suppression as jax_non_max_suppression
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.ops.nms import batched_nms, non_max_suppression
 
 NC = 3

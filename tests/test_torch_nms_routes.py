@@ -14,6 +14,7 @@ import torch
 
 import chip_smoke
 from yolov3_tpu.ops.nms import _greedy_nms
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.ops.nms_cuda import ROUTES, greedy_nms
 
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from yolov3_tpu.train import optim as jax_optim
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.models.convert import from_jax_variables
 from yolov3_tpu_torch.train import optim as port_optim
 

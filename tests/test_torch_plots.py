@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 from yolov3_tpu.utils import plots as jax_plots
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.data import image_ops
 from yolov3_tpu_torch.utils import plots
 

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from yolov3_tpu.ops.score_pallas import masked_scores_pallas
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.ops.score_cuda import masked_scores, masked_scores_plain
 
 CONF = 0.25

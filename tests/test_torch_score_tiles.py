@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.ops.score_cuda import SMEM_LIMIT, smem_bytes, tile_cells, tile_plan
 
 NA, NO = 3, 85

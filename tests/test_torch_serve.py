@@ -24,6 +24,7 @@ from yolov3_tpu.models.detect_head import decode_topk_nhwc as jax_decode_topk_nh
 from yolov3_tpu.models.detection import DetectionModel as JaxModel
 from yolov3_tpu.models.spec import parse_spec as jax_parse_spec
 from yolov3_tpu.ops.nms import nms_from_candidates as jax_nms_from_candidates
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.models.convert import load_jax_variables
 from yolov3_tpu_torch.models.detect_head import decode_topk_nhwc
 from yolov3_tpu_torch.models.detection import DetectionModel

@@ -27,6 +27,7 @@ from test_torch_serve import narrow_yolov3, port_model, to_numpy_tree
 
 from yolov3_tpu.models.detection import DetectionModel as JaxModel
 from yolov3_tpu.serve import build_pipeline as jax_build_pipeline
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.data import image_ops
 from yolov3_tpu_torch.data.augment import letterbox
 from yolov3_tpu_torch.serve import RemoteModel, build_batched_infer, build_pipeline, make_server

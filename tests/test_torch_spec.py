@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from yolov3_tpu.models.spec import parse_spec as jax_parse_spec
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.models.detection import DetectionModel
 from yolov3_tpu_torch.models.spec import parse_spec
 

@@ -26,6 +26,7 @@ from yolov3_tpu.models.detection import DetectionModel as JaxModel
 from yolov3_tpu.train.loop import train as jax_train
 from yolov3_tpu.utils.checkpoint import load_checkpoint as jax_load_checkpoint
 from yolov3_tpu.utils.checkpoint import save_checkpoint as jax_save_checkpoint
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.data import synthetic
 from yolov3_tpu_torch.models.convert import from_jax_variables, load_jax_variables
 from yolov3_tpu_torch.models.detection import DetectionModel

@@ -22,6 +22,7 @@ from yolov3_tpu.eval import validator as jax_validator
 from yolov3_tpu.models.detection import DetectionModel as JaxModel
 from yolov3_tpu.models.detection import _scale_img as jax_scale_img
 from yolov3_tpu.models.detection import predict_augmented_pure
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.eval import validator
 from yolov3_tpu_torch.models.detection import _scale_img, predict_augmented
 from yolov3_tpu_torch.ops import boxes

@@ -37,6 +37,7 @@ from yolov3_tpu.models.detection import DetectionModel as JaxModel
 from yolov3_tpu.ops import boxes as jax_boxes
 from yolov3_tpu.train.loss import LossConfig as JaxLossConfig
 from yolov3_tpu.utils import general as jax_general
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.eval import cocoeval, metrics, validator
 from yolov3_tpu_torch.models.convert import load_jax_variables
 from yolov3_tpu_torch.models.detection import DetectionModel
@@ -443,5 +444,6 @@ def test_unported_arguments_raise(kwargs, error, match):
 
 
 def test_non_native_model_raises():
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # a MultiBackend is accepted (tests/test_torch_backend.py); anything else is refused by type
+    with pytest.raises(TypeError, match="MultiBackend"):
         validator.run(model=object(), dataloader=[])

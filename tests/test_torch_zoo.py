@@ -25,6 +25,7 @@ import torch
 
 from yolov3_tpu.nn import activations as jact
 from yolov3_tpu.nn import modules as jm
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.models.convert import from_jax_module_variables
 from yolov3_tpu_torch.nn import activations as pact
 from yolov3_tpu_torch.nn import modules as pm

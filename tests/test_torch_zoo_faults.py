@@ -23,6 +23,7 @@ from yolov3_tpu.models.detection import DetectionModel as JaxModel
 from yolov3_tpu.models.spec import parse_spec as jax_parse_spec
 from yolov3_tpu.nn.modules import MODULE_REGISTRY as JAX_REGISTRY
 from yolov3_tpu.utils.checkpoint import spec_to_dict as jax_spec_to_dict
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.models.detection import DetectionModel
 from yolov3_tpu_torch.models.fuse import fuse_state_dict
 from yolov3_tpu_torch.models.loading import load_weights

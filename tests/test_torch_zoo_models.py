@@ -26,6 +26,7 @@ from yolov3_tpu.models.detect_head import decode_predictions as jax_decode_predi
 from yolov3_tpu.models.detection import DetectionModel as JaxModel
 from yolov3_tpu.models.detection import YOLOGraph
 from yolov3_tpu.models.spec import parse_spec as jax_parse_spec
+from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.models.convert import load_jax_variables
 from yolov3_tpu_torch.models.detection import DetectionModel
 from yolov3_tpu_torch.models.fuse import fuse_state_dict

@@ -3,8 +3,10 @@
     python -m yolov3_tpu_torch.cli.detect --weights yolov3.pt --source path/to/images
     python -m yolov3_tpu_torch.cli.detect --weights runs/train/exp/weights/best --device cpu
 
-`--weights`: a port checkpoint directory, a reference `.pt`, or a cfg name
-(seeded random weights); several make a concat-NMS Ensemble. `--source`: an
+`--weights`: a port checkpoint directory, a reference `.pt`, a cfg name
+(seeded random weights), or an exported `.pt2` / `.onnx` (export.py; run
+through `models.backend.MultiBackend`); several native weights make a
+concat-NMS Ensemble. `--source`: an
 image file, a directory, a glob, a `.txt` list, a video file, a webcam id /
 stream URL (cv2 needed) or `screen` (mss needed); the default is the
 package's two sample images. `--device` unset means the card (and raises
@@ -29,21 +31,20 @@ import torch
 
 from yolov3_tpu_torch.data.datasets import IMG_FORMATS
 from yolov3_tpu_torch.data.loaders import VID_FORMATS, LoadImages, LoadScreenshots, LoadStreams
+from yolov3_tpu_torch.models.backend import EXPORTED, MultiBackend
 from yolov3_tpu_torch.ops.boxes import scale_boxes, xyxy2xywh
 from yolov3_tpu_torch.ops.nms import batched_nms
 from yolov3_tpu_torch.utils.general import LOGGER, Profile, check_img_size, increment_path, print_args
 from yolov3_tpu_torch.utils.plots import Annotator, colors, save_one_box
 
 DEFAULT_SOURCE = str(Path(__file__).resolve().parents[1] / "data" / "images")
-EXPORTED = {".stablehlo": "stablehlo", ".tflite": "tflite", ".onnx": "onnx"}
 
 
 def exported_format(weights):
-    """The exported-artifact format of `weights` (the JAX MultiBackend's sniff), or None."""
-    p = Path(str(weights))
-    if p.is_dir() and str(p).endswith("_savedmodel"):
-        return "savedmodel"
-    return EXPORTED.get(p.suffix)
+    """The exported-artifact format of `weights` ("pt2" or "onnx", MultiBackend's
+    sniff), or None for native weights; a format the port does not read raises."""
+    fmt = MultiBackend._sniff(Path(str(weights)))
+    return fmt if fmt in EXPORTED else None
 
 
 def run(
@@ -93,12 +94,19 @@ def run(
     if isinstance(weights, (list, tuple)) and len(weights) == 1:
         weights = weights[0]
     members = weights if isinstance(weights, (list, tuple)) else [weights]
-    for w in members:
-        if exported_format(w):
-            raise NotImplementedError(f"{w}: exported {exported_format(w)} artifacts are not ported yet "
-                                      "(ROADMAP.md queue 1 item 6)")
+    fmt = exported_format(weights) if len(members) == 1 else None
+    if len(members) > 1 and any(exported_format(w) for w in members):
+        raise ValueError(f"an ensemble takes checkpoints, reference .pt files or cfgs, not exported artifacts: "
+                         f"{members}")
 
-    if isinstance(weights, (list, tuple)):  # concat-NMS ensemble (reference experimental.py:74-124)
+    if fmt:  # an exported artifact: MultiBackend's decode, NMS here (reference detect.py:166)
+        if augment:
+            raise ValueError("--augment (TTA) is not supported for exported artifacts")
+        model = MultiBackend(weights, imgsz=imgsz[0] if not isinstance(imgsz, int) else imgsz, device=device)
+        if model.has_nms:
+            raise ValueError(f"{weights} was exported with nms=True; detect runs its own NMS on an artifact "
+                             "exported without it")
+    elif isinstance(weights, (list, tuple)):  # concat-NMS ensemble (reference experimental.py:74-124)
         assert not augment, "--augment with an ensemble is not supported in detect"
         model = attempt_load(list(weights), device=device)
     else:
@@ -112,6 +120,8 @@ def run(
 
     @torch.inference_mode()
     def infer(imgs_u8):
+        if fmt:
+            return model(imgs_u8)
         x = torch.as_tensor(imgs_u8).to(dev).float() / 255.0
         return model.predict(x, augment=augment)
 
@@ -227,7 +237,8 @@ def run(
 def parse_opt(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--weights", type=str, nargs="+", default="yolov3-tiny",
-                        help="checkpoint dir(s), reference .pt file(s) or model cfg name; several -> concat-NMS ensemble")
+                        help="checkpoint dir(s), reference .pt file(s), model cfg name, or one exported .pt2 / "
+                             ".onnx; several -> concat-NMS ensemble")
     parser.add_argument("--source", type=str, default=DEFAULT_SOURCE, help="file/dir/URL/glob/.txt/screen/0(webcam)")
     parser.add_argument("--data", type=str, default=None, help="(optional) dataset.yaml for names")
     parser.add_argument("--imgsz", "--img", "--img-size", nargs="+", type=int, default=[640], help="inference size")

@@ -93,21 +93,28 @@ def run(
     save_hybrid: hybrid autolabelling (reference val.py:374): the labels are
     injected as detections of confidence 1; the losses are not computed.
     augment: test-time augmentation (`models.detection.predict_augmented`).
-    `model` may also be an `Ensemble` (models/ensemble.py): its members'
-    decoded predictions are concatenated before the NMS, as the JAX
-    validator runs a non-native model (square letterbox, no loss, no TTA).
+    `model` may also be an `Ensemble` (models/ensemble.py), whose members'
+    decoded predictions are concatenated before the NMS, or a `MultiBackend`
+    (models/backend.py) over an exported artifact: both take the JAX
+    validator's non-native path (square letterbox, no loss, no TTA, half
+    off), the artifact's predictions going straight to the multi-label
+    `batched_nms` on the backend's device.
     `plots` and `sharded` raise NotImplementedError when set (NOT_PORTED).
 
     Returns ((mp, mr, map50, map, *losses), per_class_maps, speeds_ms).
     """
+    from yolov3_tpu_torch.models.backend import MultiBackend
     from yolov3_tpu_torch.models.ensemble import Ensemble
 
     for name, value in dict(plots=plots, sharded=sharded).items():
         if value:
             raise NotImplementedError(f"validator.run: {NOT_PORTED[name]} is not ported yet")
-    if not isinstance(model, (DetectionModel, Ensemble)):
-        raise NotImplementedError("validator.run: a model other than yolov3_tpu_torch's DetectionModel or "
-                                  "Ensemble (exported backends) is not ported yet (ROADMAP.md queue 1 item 6)")
+    if not isinstance(model, (DetectionModel, Ensemble, MultiBackend)):
+        raise TypeError(f"validator.run: model is a {type(model).__name__}; it takes yolov3_tpu_torch's "
+                        "DetectionModel, an Ensemble or a MultiBackend (exported artifacts)")
+    if isinstance(model, MultiBackend) and model.has_nms:
+        raise ValueError("validator.run: this pt2 was exported with nms=True (serving NMS at conf 0.25); "
+                         "validate an artifact exported without nms")
     native = isinstance(model, DetectionModel)
     if not native:
         rect, augment, half = False, False, False  # the JAX validator's non-native path
@@ -124,8 +131,9 @@ def run(
         dataloader = DataLoader(dataset, batch_size=batch_size, shuffle=False, workers=workers)
     elif data is not None and not isinstance(data, dict):
         data = check_dataset(data)
-    names = names or {i: str(i) for i in range(model.spec.nc)}
-    nc = 1 if single_cls else model.spec.nc
+    model_nc = len(model.names) if isinstance(model, MultiBackend) else model.spec.nc
+    names = names or {i: str(i) for i in range(model_nc)}
+    nc = 1 if single_cls else model_nc
     device = model.device
 
     iouv = np.linspace(0.5, 0.95, 10)
@@ -271,20 +279,23 @@ def make_forward(model, conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30
     `decode_predictions` (augment=True: the TTA passes of
     `predict_augmented`); multi-label `batched_nms` through `nms_fn`.
     decode_only: return the decoded predictions (B, N, 5+nc) and stop there.
-    An Ensemble's decoded predictions come from its `predict`."""
+    An Ensemble's or a MultiBackend's decoded predictions come from calling it
+    (a MultiBackend of a pt2 exported with NMS cannot serve: its NMS is not
+    the val-grade one)."""
+    from yolov3_tpu_torch.models.backend import MultiBackend
     from yolov3_tpu_torch.models.ensemble import Ensemble
 
-    if isinstance(model, Ensemble):
+    if isinstance(model, (Ensemble, MultiBackend)):
 
         @torch.inference_mode()
-        def forward_ensemble(imgs_u8):
+        def forward_decoded(imgs_u8):
             pred = model(imgs_u8)
             if decode_only:
                 return pred
             return batched_nms(pred, conf_thres=conf_thres, iou_thres=iou_thres, multi_label=True,
                                max_det=max_det, max_nms=max_nms, nms_fn=nms_fn)
 
-        return forward_ensemble
+        return forward_decoded
     if half:
         fused = model.fuse()  # a new model, unless `model` is fused already
         net = cast_for_inference(fused if fused is not model else copy.deepcopy(model))

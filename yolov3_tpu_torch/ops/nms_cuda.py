@@ -57,13 +57,26 @@ def greedy_nms(boxes_off, boxes, scores, cls_ids, iou_thres=0.45, max_det=300):
     slots <= 0; cls_ids: (B, K) class ids as floats.
     Returns out (B, max_det, 6) f32 rows [x1, y1, x2, y2, conf, cls] in
     descending score order, zero past the last detection, and n (B,) int32.
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (one of `ROUTES`, chosen from K; `greedy_nms.last_route` names it).
+
+    It calls the registered op `torch.ops.yolov3_tpu_torch.greedy_nms`, so a
+    program that `torch.export` traces through it carries the op: a CPU
+    tensor runs the plain version; a CUDA tensor launches the kernel (one of
+    `ROUTES`, chosen from K; `greedy_nms.last_route` names it); any other
+    device raises.
     """
-    if scores.device.type == "cpu":
-        return greedy_nms_plain(boxes_off, boxes, scores, cls_ids, iou_thres, max_det)
-    if scores.device.type != "cuda":
+    if scores.device.type not in ("cpu", "cuda"):
         raise ValueError(f"greedy_nms: unsupported device {scores.device}")
+    return torch.ops.yolov3_tpu_torch.greedy_nms(boxes_off, boxes, scores, cls_ids, float(iou_thres), int(max_det))
+
+
+@torch.library.custom_op("yolov3_tpu_torch::greedy_nms", mutates_args=(), device_types="cpu")
+def _greedy_nms_op(boxes_off: torch.Tensor, boxes: torch.Tensor, scores: torch.Tensor, cls_ids: torch.Tensor,
+                   iou_thres: float, max_det: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return greedy_nms_plain(boxes_off, boxes, scores, cls_ids, iou_thres, max_det)
+
+
+@_greedy_nms_op.register_kernel("cuda")
+def _greedy_nms_cuda(boxes_off, boxes, scores, cls_ids, iou_thres, max_det):
     B, K = scores.shape
     if K < 1 or boxes_off.shape != (B, K, 4) or boxes.shape != (B, K, 4) or cls_ids.shape != (B, K):
         raise ValueError(f"greedy_nms: shapes {tuple(boxes_off.shape)}, {tuple(boxes.shape)}, "
@@ -91,6 +104,13 @@ def greedy_nms(boxes_off, boxes, scores, cls_ids, iou_thres=0.45, max_det=300):
     greedy_nms.launches += 1
     greedy_nms.last_route = ROUTES[route]
     return out, n
+
+
+@_greedy_nms_op.register_fake
+def _greedy_nms_fake(boxes_off, boxes, scores, cls_ids, iou_thres, max_det):
+    B = scores.shape[0]
+    return (scores.new_empty((B, max_det, 6), dtype=torch.float32),
+            scores.new_empty((B,), dtype=torch.int32))
 
 
 greedy_nms.launches = 0

@@ -135,7 +135,9 @@ def _de_tuple(x):
 def load_model_from_checkpoint(path, device=None, dtype=torch.float32):
     """Rebuild a DetectionModel from a checkpoint directory: the spec from
     `model_yaml`, the EMA weights when the checkpoint has them, else its
-    model's. device=None means "cuda" (and raises without one)."""
+    model's; a checkpoint whose meta says `fused` (export_checkpoint of a
+    folded model) builds the folded graph. device=None means "cuda" (and
+    raises without one)."""
     from yolov3_tpu_torch.models.detection import DetectionModel
     from yolov3_tpu_torch.models.spec import parse_spec
     from yolov3_tpu_torch.utils.general import select_device
@@ -143,7 +145,7 @@ def load_model_from_checkpoint(path, device=None, dtype=torch.float32):
     path = Path(path)
     sd, meta = load_checkpoint(path)
     with torch.device("meta"):
-        model = DetectionModel(parse_spec(meta["model_yaml"]))
+        model = DetectionModel(parse_spec(meta["model_yaml"]), fused=bool(meta.get("fused", False)))
     model.load_state_dict(sd["ema"]["ema"] if "ema" in sd else sd["model"], assign=True)
     model = model.to(device=select_device(device), dtype=dtype, memory_format=torch.channels_last).eval()
     names = meta.get("names")
