@@ -88,6 +88,23 @@ Phases, each printing its result on its own line:
      1 + 5 steps at batch 8 (11 K3 launches a step), held as in 8;
      yolov5s-transformer and yolov5s-ghost one served batch of 8 and one
      train step each (K3 10 and 0 launches), held alike.
+ 12. data parallelism on the one card (phase_parallel, after 7b, on the planted
+     model): a float32 train step of a seeded batch of 8 through a process
+     group of one over NCCL equal to the ungrouped step in its bits (loss,
+     grad norm, BatchNorm statistics; at one rank the statistics and the
+     loss are the local ones, the gradient and metrics go through NCCL);
+     two ranks (gloo with CUDA tensors, named by this script: NCCL takes a
+     card a rank), 4 images each with unequal labels, 1 + 2 float32
+     steps against one process on all 8 (loss rtol 1e-4, grad norm 1e-3,
+     parameters, running statistics and EMA 1e-4; 33 K3 launches a rank a
+     step; the ranks equal in their bits); serving over a mesh of two shards
+     of the card (each shard's rows equal to the unsharded call on them, K2
+     6 and K1 2 launches a batch of 32; the float32 full path against the
+     unsharded batch of 32 at the NMS bars, the bf16 fast path's frames that
+     differ from it counted; MicroBatcher(min_bucket=2)); sharded
+     validation (mAP50 within 0.005, per-shard rows equal); and
+     cli/train.main over two processes for an epoch and a resume of a second
+     (rank 0 alone writes checkpoints, the ranks end equal).
 With `--kernel-times [ROOT]` it only times K3, K1 and K2 of the package under
 ROOT (default: beside this file) at the main paths' shapes and stops: run
 once per tree, parent, change, change, parent, to compare two trees on one
@@ -101,6 +118,7 @@ the other measurements, the card's name and power limit, and, last,
 from __future__ import annotations
 
 import copy
+import functools
 import io
 import json
 import subprocess
@@ -578,7 +596,7 @@ def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32):
     profile_fast_path(infer, imgs)
 
     check_fast_path(infer, model, imgs)
-    return launches, dict(img_s=n_requests / serve_s, batch_ms=batch_ms)
+    return launches, dict(img_s=n_requests / serve_s, batch_ms=batch_ms), batch
 
 
 def check_fast_path(infer, model, imgs, label="fast path"):
@@ -2418,6 +2436,413 @@ def phase_zoo(rng):
     return launches, results
 
 
+PARALLEL_BS = 8  # the seeded train batch: 4 images a rank at world 2
+PARALLEL_BOXES = (8, 8, 8, 8, 3, 3, 3, 3)  # labels an image: the halves hold different numbers of targets
+PARALLEL_STEPS = 3  # 1 + 2 float32 steps
+PARALLEL_TRAINER_IMAGES = (8, 4)  # the trainer phase's synthetic dataset, cut: train and val images
+PARALLEL_TRAINER_BS = 4  # a process's batch: 8 images a step over 2 processes
+PARALLEL_TIMEOUT_S = 300
+# two ranks on the one card: NCCL takes a card a rank, so they name gloo, which stages each
+# collective of CUDA tensors through the host
+SHARED_CARD_BACKEND = "gloo"
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_train_batch(imgsz=640, max_labels=16, nc=80):
+    """The seeded batch of PARALLEL_BS images with PARALLEL_BOXES labels each (a generator of its own)."""
+    rng = np.random.default_rng(20)
+    imgs = rng.integers(0, 256, size=(PARALLEL_BS, imgsz, imgsz, 3), dtype=np.uint8)
+    targets = np.zeros((PARALLEL_BS, max_labels, 5), np.float32)
+    mask = np.zeros((PARALLEL_BS, max_labels), bool)
+    for i, n in enumerate(PARALLEL_BOXES):
+        targets[i, :n, 0] = rng.integers(0, nc, size=n)
+        targets[i, :n, 1:3] = rng.uniform(0.1, 0.9, size=(n, 2))
+        targets[i, :n, 3:5] = rng.uniform(0.04, 0.5, size=(n, 2))
+        mask[i, :n] = True
+    return imgs, targets, mask
+
+
+def parallel_steps(model, batch, steps, mesh=None):
+    """`steps` float32 train steps of `model` (SGD at its defaults, no warm-up,
+    no accumulation) on `batch` (this rank's rows of it under a process
+    group); per step the loss, grad norm, K3 launches and host ms."""
+    from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
+    from yolov3_tpu_torch.parallel import mesh as par
+    from yolov3_tpu_torch.train.loss import LossConfig
+    from yolov3_tpu_torch.train.optim import build_optimizer
+    from yolov3_tpu_torch.train.step import make_train_step
+
+    hyp = {"warmup_epochs": 0.0}
+    optimizer, _, _ = build_optimizer("sgd", model, hyp, epochs=300, steps_per_epoch=1000, batch_size=64,
+                                      min_warmup_steps=0)
+    step = make_train_step(model, LossConfig.from_model(model.spec, hyp), optimizer, compute_dtype=torch.float32,
+                           mesh=mesh)
+    local = par.shard_batch(batch) if mesh is not None else batch
+    local = tuple(torch.as_tensor(a, device=model.device) for a in local)
+    rows = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        conv3x3_bn_stats.launches = 0
+        t0 = time.perf_counter()
+        m = step(*local)
+        torch.cuda.synchronize()
+        rows.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), k3=conv3x3_bn_stats.launches,
+                         ms=(time.perf_counter() - t0) * 1e3))
+    return rows, step.state
+
+
+def parallel_worker(cfg_path):
+    """One rank of phase_parallel, started as `chip_smoke.py --parallel-worker <config.json>`:
+    mode "steps" runs parallel_steps on its rows of the seeded batch; mode
+    "cli" runs cli/train.main with the config's arguments. Writes what it
+    saw to the config's `out` file."""
+    from pathlib import Path
+
+    from yolov3_tpu_torch.ops import cuda_build
+    from yolov3_tpu_torch.parallel import mesh as par
+
+    cfg = json.loads(Path(cfg_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_build.build_all()  # the parent's builds, found in the cache
+    out = {}
+    if cfg["mode"] == "steps":  # this rank's rows of the seeded batch
+        from yolov3_tpu_torch.models.detection import DetectionModel
+
+        par.initialize_distributed(f"127.0.0.1:{cfg['port']}", cfg["world"], cfg["rank"], backend=SHARED_CARD_BACKEND)
+        try:
+            out["backend"] = par.backend()
+            model = DetectionModel.from_config("yolov3", seed=0, device=par.rank_device())
+            out["steps"], state = parallel_steps(model, parallel_train_batch(), PARALLEL_STEPS,
+                                                 mesh=torch.distributed.group.WORLD)
+            out["model"] = {k: v.cpu() for k, v in model.state_dict().items()}
+            out["ema"] = {k: v.cpu() for k, v in state.ema.ema.items()}
+        finally:
+            par.destroy_distributed()
+    else:  # the trainer CLI, which joins and leaves the group itself: its arguments and the group's
+        from yolov3_tpu_torch.cli import train as cli_train
+        from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
+        from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
+        from yolov3_tpu_torch.train import loop
+
+        steps, writes = [], {"save_checkpoint": 0, "strip_checkpoint": 0}
+
+        def keeping(fn):
+            def make(*args, **kw):
+                steps.append(fn(*args, **kw))
+                return steps[-1]
+            return make
+
+        def counting(name, fn):
+            def call(*args, **kw):
+                writes[name] += 1
+                return fn(*args, **kw)
+            return call
+
+        loop.make_train_step = keeping(loop.make_train_step)
+        # the CLI joins the group itself; its ranks share the card, so the backend is named here
+        par.initialize_distributed = functools.partial(par.initialize_distributed, backend=SHARED_CARD_BACKEND)
+        for name in writes:
+            setattr(loop, name, counting(name, getattr(loop, name)))
+        conv3x3_bn_stats.launches = greedy_nms.launches = 0
+        argv = cfg["argv"] + ["--coordinator", f"127.0.0.1:{cfg['port']}", "--num-processes", str(cfg["world"]),
+                              "--process-id", str(cfg["rank"])]
+        _, results, save_dir = cli_train.main(cli_train.parse_opt(argv=argv))
+        state = steps[-1].state
+        out.update(writes=writes, k3=conv3x3_bn_stats.launches, k1=greedy_nms.launches, step=state.step,
+                   results=[float(v) for v in results], save_dir=str(save_dir),
+                   model={k: v.cpu() for k, v in state.model.state_dict().items()})
+    torch.save(out, cfg["out"])
+    return 0
+
+
+def run_ranks(tmp, name, mode, world, argv=(), timeout=PARALLEL_TIMEOUT_S):
+    """Start `world` ranks of parallel_worker in `mode` and wait for them
+    (every one killed on a failure or the timeout); returns what each wrote."""
+    port = free_port()
+    procs = []
+    try:
+        for rank in range(world):
+            cfg = tmp / f"{name}{rank}.json"
+            cfg.write_text(json.dumps({"mode": mode, "rank": rank, "world": world, "port": port, "argv": list(argv),
+                                       "out": str(tmp / f"{name}{rank}.pt")}))
+            log = open(tmp / f"{name}{rank}.log", "w")
+            procs.append((subprocess.Popen([sys.executable, __file__, "--parallel-worker", str(cfg)],
+                                           stdout=log, stderr=subprocess.STDOUT), log))
+        deadline = time.perf_counter() + timeout
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for rank, (p, _) in enumerate(procs):
+        check(p.returncode == 0, f"parallel {name} rank {rank} exited {p.returncode}:\n"
+              + (tmp / f"{name}{rank}.log").read_text()[-3000:])
+    return [torch.load(tmp / f"{name}{r}.pt", weights_only=False) for r in range(world)]
+
+
+PARALLEL_STATE_LIMITS = dict(rtol=1e-4, atol=1e-6)  # atol: elements near 0 (float32's step at 1 is 1.2e-7)
+
+
+def state_errors(got, want):
+    """Over the floating tensors of two state dicts: the max absolute
+    difference, the max relative one where |want| > 1e-2, and whether every
+    element is within PARALLEL_STATE_LIMITS (|got - want| <= atol + rtol |want|)."""
+    abs_err, rel_err, within = 0.0, 0.0, True
+    for k, w in want.items():
+        if w.is_floating_point():
+            d, w = (got[k].double() - w.double()).abs(), w.double().abs()
+            abs_err = max(abs_err, float(d.max()))
+            big = w > 1e-2
+            if big.any():
+                rel_err = max(rel_err, float((d[big] / w[big]).max()))
+            within &= bool((d <= PARALLEL_STATE_LIMITS["atol"] + PARALLEL_STATE_LIMITS["rtol"] * w).all())
+    return dict(max_abs=abs_err, max_rel=rel_err, within=within)
+
+
+def phase_parallel(model, serving_batch, val_batches, map50, gpu):
+    """Data parallelism on the one card (parallel/mesh.py): the world-1 NCCL
+    step, two ranks against one process, sharded serving and validation on
+    the planted `model`, and the trainer CLI over two processes. Returns
+    (launches of each kernel, measurements)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from yolov3_tpu_torch.data import synthetic
+    from yolov3_tpu_torch.eval import validator
+    from yolov3_tpu_torch.models.detection import DetectionModel
+    from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
+    from yolov3_tpu_torch.parallel import mesh as par
+    from yolov3_tpu_torch.serve import MicroBatcher, build_batched_infer
+    from yolov3_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out, launches = {}, {}
+    t_phase = time.perf_counter()
+    batch = parallel_train_batch()
+
+    # 1. a group of one over NCCL, in this process: the grouped step equals the ungrouped one in its bits
+    fresh = DetectionModel.from_config("yolov3", seed=0)
+    init = copy.deepcopy(fresh.state_dict())
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # cuDNN's backward algorithms that add in a fixed order
+    try:
+        ref_rows, ref_state = parallel_steps(fresh, batch, 1)
+        ref_sd = copy.deepcopy(fresh.state_dict())
+        fresh.load_state_dict(init)
+        par.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+        try:
+            backend = par.backend()
+            rows, _ = parallel_steps(fresh, batch, 1, mesh=torch.distributed.group.WORLD)
+        finally:
+            par.destroy_distributed()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    got_sd = fresh.state_dict()
+    stats_equal = all(torch.equal(got_sd[k], ref_sd[k]) for k in ref_sd if "running_" in k)
+    all_equal = all(torch.equal(got_sd[k], ref_sd[k]) for k in ref_sd)
+    print(f"parallel world 1 ({backend}, in process): a float32 step of the batch of {PARALLEL_BS}: loss "
+          f"{rows[0]['loss']!r} vs ungrouped {ref_rows[0]['loss']!r}, grad norm {rows[0]['grad_norm']!r} vs "
+          f"{ref_rows[0]['grad_norm']!r}; BatchNorm statistics equal in their bits: {stats_equal}; every "
+          f"parameter and buffer: {all_equal}; K3 launches {rows[0]['k3']}", flush=True)
+    check(backend == "nccl", f"the world-1 group took {backend}, not NCCL")
+    check(rows[0]["loss"] == ref_rows[0]["loss"] and rows[0]["grad_norm"] == ref_rows[0]["grad_norm"]
+          and stats_equal, "the world-1 grouped step differs from the ungrouped step")
+    check(rows[0]["k3"] == YOLOV3_K3_CONVS, f"the world-1 step launched K3 {rows[0]['k3']} times")
+    launches["conv3x3_bn_stats_world1"] = rows[0]["k3"]
+    out["world1"] = dict(backend=backend, loss=rows[0]["loss"], grad_norm=rows[0]["grad_norm"],
+                         bn_stats_equal=stats_equal, state_equal=all_equal)
+    print(f"parallel world 1: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # 2. two ranks on the one card against one process on the whole batch
+    fresh.load_state_dict(init)
+    ref_rows, ref_state = parallel_steps(fresh, batch, PARALLEL_STEPS)
+    ref_model = {k: v.cpu() for k, v in fresh.state_dict().items()}
+    ref_ema = {k: v.cpu() for k, v in ref_state.ema.ema.items()}
+    del fresh, ref_state, init, ref_sd, got_sd
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+    try:
+        t0 = time.perf_counter()
+        ranks = run_ranks(tmp, "steps", "steps", 2)
+        ranks_s = time.perf_counter() - t0
+        r0, r1 = ranks
+        for k, (a, b) in enumerate(zip(r0["steps"], ref_rows)):
+            loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+            norm_rel = abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+            print(f"parallel 2 ranks ({r0['backend']}, one card) step {k}: loss {a['loss']:.6f} vs one process "
+                  f"{b['loss']:.6f} ({loss_rel:.2e}), grad norm {a['grad_norm']:.5f} vs {b['grad_norm']:.5f} "
+                  f"({norm_rel:.2e}); K3 launches a rank {a['k3']} / {r1['steps'][k]['k3']}", flush=True)
+            check(loss_rel <= F32_STEP_LIMITS["loss_rtol"] and norm_rel <= F32_STEP_LIMITS["norm_rtol"],
+                  f"2 ranks step {k}: loss {loss_rel:.2e} or grad norm {norm_rel:.2e} off one process's")
+            check(a["k3"] == r1["steps"][k]["k3"] == YOLOV3_K3_CONVS, f"2 ranks step {k}: K3 launches {a['k3']}")
+            check(a == {**r1["steps"][k], "ms": a["ms"]}, f"2 ranks step {k}: the ranks' metrics differ")
+        ranks_equal = all(torch.equal(r0[part][k], r1[part][k]) for part in ("model", "ema") for k in r0[part])
+        stats = {k: v for k, v in ref_model.items() if "running_" in k}
+        errs = {"running statistics": state_errors(r0["model"], stats),
+                "parameters": state_errors(r0["model"], {k: v for k, v in ref_model.items() if k not in stats}),
+                "EMA": state_errors(r0["ema"], ref_ema)}
+        ms_one = float(np.mean([r["ms"] for r in ref_rows[1:]]))
+        ms_two = float(np.mean([r["ms"] for r in r0["steps"][1:]]))
+        print(f"parallel 2 ranks: the ranks' parameters and EMA equal in their bits: {ranks_equal}; against one "
+              f"process (max abs diff, max rel diff where |v| > 1e-2, within rtol 1e-4 atol 1e-6): "
+              + ", ".join(f"{k} {v['max_abs']:.2e} {v['max_rel']:.2e} {v['within']}" for k, v in errs.items())
+              + f"; ms per step (host clock, synchronised): one process at batch {PARALLEL_BS} {ms_one:.1f}, "
+              f"two ranks at {PARALLEL_BS // 2} each on one card {ms_two:.1f} ({ranks_s:.1f} s with start-up) "
+              f"on {gpu}", flush=True)
+        check(ranks_equal, "the two ranks' parameters or EMA differ")
+        check(all(v["within"] for v in errs.values()), f"2 ranks against one process: {errs}")
+        launches["conv3x3_bn_stats_per_rank_step"] = r0["steps"][-1]["k3"]
+        out["two_ranks"] = dict(backend=r0["backend"], steps=r0["steps"], one_process=ref_rows, errors=errs,
+                                ms_one_process=ms_one, ms_two_ranks=ms_two)
+        del ranks, r0, r1, ref_model, ref_ema
+
+        # 3. sharded serving over two shards of the card
+        mesh = par.create_mesh(["cuda:0", "cuda:0"])
+        imgs = torch.as_tensor(serving_batch, device=model.device)
+        sharded = build_batched_infer(model, mesh=mesh)
+        plain = build_batched_infer(model)
+        sharded(imgs)  # warm-up at the shards' batch size
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        dets_s, n_s = sharded(imgs)
+        torch.cuda.synchronize()
+        serve_launches = kernel_counts()
+        check(sharded.fallbacks == 0, "the sharded batch took the full-decode fallback")
+        check(serve_launches == {"greedy_nms": 2, "masked_scores": 6, "conv3x3_bn_stats": 0},
+              f"sharded serving launches {serve_launches}, expected K2 6 and K1 2")
+        half = len(serving_batch) // 2
+        for a in (0, half):
+            d, n = plain(imgs[a:a + half])
+            check(torch.equal(dets_s[a:a + half], d) and np.array_equal(np.asarray(n_s[a:a + half]),
+                                                                         np.asarray(n)),
+                  f"shard rows {a}-{a + half} differ from the unsharded call on those rows")
+        # against the unsharded batch of 32: the bf16 forward's rows depend on the batch size (cuDNN picks
+        # its algorithm by shape), so they are counted, not held; the float32 full path is held at the NMS bars
+        d_all, n_all = plain(imgs)
+        n_s, n_all, d_s, d_all = np.asarray(n_s), np.asarray(n_all), dets_s.cpu().numpy(), d_all.cpu().numpy()
+        differ = [i for i in range(len(n_s))
+                  if not (n_s[i] == n_all[i] and np.array_equal(d_s[i, :n_s[i]], d_all[i, :n_all[i]]))]
+        n_differ = [i for i in range(len(n_s)) if n_s[i] != n_all[i]]
+        full_s, full = build_batched_infer(model, fast=False, mesh=mesh), build_batched_infer(model, fast=False)
+        reset_kernel_counts()
+        fd_s, fn_s = full_s(imgs)
+        torch.cuda.synchronize()
+        full_launches = kernel_counts()
+        fd, fn = full(imgs)
+        for a in (0, half):
+            d, n = full(imgs[a:a + half])
+            check(torch.equal(fd_s[a:a + half], d) and torch.equal(fn_s[a:a + half], n),
+                  f"float32 shard rows {a}-{a + half} differ from the unsharded call on those rows")
+        fd_s, fn_s, fd, fn = fd_s.cpu().numpy(), fn_s.cpu().numpy(), fd.cpu().numpy(), fn.cpu().numpy()
+        box_err = conf_err = 0.0
+        for i in range(len(fn)):
+            b, c = check_dets(fd_s[i, :fn_s[i]], fd[i, :fn[i]], f"sharded float32 serving frame {i}")
+            box_err, conf_err = max(box_err, b), max(conf_err, c)
+        check(full_launches == {"greedy_nms": 2, "masked_scores": 0, "conv3x3_bn_stats": 0},
+              f"sharded float32 serving launches {full_launches}, expected K1 2")
+        batcher = MicroBatcher(sharded, max_batch=len(serving_batch), batch_wait_ms=50.0, min_bucket=mesh.size)
+        check(batcher.buckets == [2, 4, 8, 16, 32], f"MicroBatcher(min_bucket=2) buckets {batcher.buckets}")
+        with ThreadPoolExecutor(max_workers=3) as pool:  # one call, padded to the bucket of 4 with the last frame
+            answers = [f.result() for f in [pool.submit(batcher.submit, serving_batch[i]) for i in range(3)]]
+        want_d, want_n = sharded(serving_batch[[0, 1, 2, 2]])
+        check(batcher.calls == 1 and all(n == int(want_n[i]) and np.array_equal(d, want_d[i, :n].cpu().numpy())
+                                         for i, (d, n) in enumerate(answers)),
+              f"sharded MicroBatcher: {batcher.calls} calls, answers differ from the padded bucket's")
+        ms_sharded = cuda_ms(lambda: sharded(imgs)[0], iters=10)
+        ms_plain = cuda_ms(lambda: plain(imgs)[0], iters=10)
+        print(f"parallel sharded serving (2 shards of {gpu.split(',')[0]}): bf16 fast path, batch of "
+              f"{len(serving_batch)}: launches {serve_launches}, each shard's rows equal to the unsharded call on "
+              f"them; against the unsharded batch of 32, {len(differ)} frames not equal in their bits, "
+              f"{len(n_differ)} with another n (the bf16 forward by batch size); float32 full path: launches "
+              f"{full_launches}, each "
+              f"shard's rows equal to the unsharded call on them, against the batch of 32 n equal, max box err "
+              f"{box_err:.3g} px, conf err {conf_err:.3g}; MicroBatcher(min_bucket=2) buckets {batcher.buckets}, 3 "
+              f"requests in {batcher.calls} call; {ms_sharded:.3f} ms per sharded batch, {ms_plain:.3f} unsharded "
+              f"(bf16), on {gpu}", flush=True)
+        launches.update(greedy_nms_serve=serve_launches["greedy_nms"],
+                        masked_scores_serve=serve_launches["masked_scores"])
+        out["serving"] = dict(launches=serve_launches, full_launches=full_launches, frames_differ=len(differ),
+                              frames_n_differ=len(n_differ), full_box_err=box_err, full_conf_err=conf_err,
+                              ms_sharded=ms_sharded, ms_unsharded=ms_plain, buckets=batcher.buckets)
+
+        # 4. sharded validation through the same mesh
+        fwd_s, fwd = validator.make_forward(model, mesh=mesh), validator.make_forward(model)
+        vb = torch.as_tensor(val_batches[0][0], device=model.device)
+        d_s, n_s = fwd_s(vb)
+        h = len(vb) // 2
+        for a in (0, h):
+            d, n = fwd(vb[a:a + h])
+            check(torch.equal(d_s[a:a + h], d) and torch.equal(n_s[a:a + h], n),
+                  f"sharded val rows {a}-{a + h} differ from the unsharded forward on those rows")
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        results, _, _ = validator.run(model=model, dataloader=val_batches, sharded=mesh)
+        val_s = time.perf_counter() - t0
+        val_launches = kernel_counts()
+        n_val = sum(len(b[0]) for b in val_batches)
+        print(f"parallel sharded val: mAP50 {results[2]:.4f} against unsharded {map50:.4f}; launches "
+              f"{val_launches} for {len(val_batches)} batches; per-shard rows equal; {n_val / val_s:.1f} img/s "
+              f"(host clock) on {gpu}", flush=True)
+        check(abs(results[2] - map50) <= 0.005, f"sharded val mAP50 {results[2]} vs {map50}")
+        check(val_launches["greedy_nms"] == 2 * len(val_batches), f"sharded val launches {val_launches}")
+        launches["greedy_nms_val"] = val_launches["greedy_nms"]
+        out["val"] = dict(map50=float(results[2]), map50_unsharded=float(map50), launches=val_launches,
+                          img_s=n_val / val_s)
+
+        # 5. the trainer CLI over two processes: one epoch, then both resume a second
+        n_train, n_val = PARALLEL_TRAINER_IMAGES
+        synthetic.generate(tmp / "shapes", n_images=n_train, imgsz=640, seed=0, n_val=n_val)
+        run = tmp / "run"
+        common = ["--data", str(tmp / "shapes" / "dataset.yaml"), "--cfg", "yolov3", "--imgsz", "640",
+                  "--batch-size", str(PARALLEL_TRAINER_BS), "--workers", "4", "--noautoanchor", "--sync-bn"]
+        t0 = time.perf_counter()
+        first = run_ranks(tmp, "cli", "cli", 2, common + ["--epochs", "1", "--project", str(tmp), "--name", "run"])
+        files = sorted(p.name for p in (run / "weights").iterdir())
+        resumed = run_ranks(tmp, "resume", "cli", 2, common + ["--epochs", "2", "--resume", str(run)])
+        trainer_s = time.perf_counter() - t0
+        steps_a_epoch = n_train // (2 * PARALLEL_TRAINER_BS)
+        val_batches_n = -(-n_val // PARALLEL_TRAINER_BS)
+        for label, (r0, r1) in (("first run", first), ("resumed run", resumed)):
+            print(f"parallel trainer CLI, {label}: checkpoint writes {r0['writes']} / {r1['writes']} (rank 0 / 1), "
+                  f"steps {r0['step']} / {r1['step']}, K3 launches {r0['k3']} / {r1['k3']}, K1 {r0['k1']} / "
+                  f"{r1['k1']}, results {r0['results'][:4]}", flush=True)
+            # rank 0: `last` every epoch, `best` where the fitness did not fall, both stripped at the end
+            check(r0["writes"]["save_checkpoint"] >= 1 and r0["writes"]["strip_checkpoint"] == 2
+                  and r1["writes"] == {"save_checkpoint": 0, "strip_checkpoint": 0},
+                  f"trainer {label}: checkpoint writes {r0['writes']} / {r1['writes']}")
+            check(r0["step"] == r1["step"] == steps_a_epoch, f"trainer {label}: steps {r0['step']} / {r1['step']}")
+            check(r0["k3"] == r1["k3"] == YOLOV3_K3_CONVS * steps_a_epoch,
+                  f"trainer {label}: K3 launches {r0['k3']} / {r1['k3']}")
+            check(r0["k1"] == val_batches_n and r1["k1"] == 0, f"trainer {label}: K1 {r0['k1']} / {r1['k1']}")
+            check(r0["results"] == r1["results"], f"trainer {label}: the ranks' results differ")
+        ranks_equal = all(torch.equal(resumed[0]["model"][k], v) for k, v in resumed[1]["model"].items())
+        last, _ = load_checkpoint(run / "weights" / "last")
+        print(f"parallel trainer CLI: weights/ after the first run {files}; after the resume both ranks' "
+              f"parameters equal in their bits: {ranks_equal}; stripped last holds {len(last['model'])} tensors; "
+              f"{trainer_s:.1f} s for both runs (process start-up and checkpoint writes included)", flush=True)
+        check(files == ["best", "last"], f"weights/ holds {files}")
+        check(ranks_equal, "the resumed ranks' parameters differ")
+        launches.update(conv3x3_bn_stats_trainer=first[0]["k3"] + resumed[0]["k3"],
+                        greedy_nms_trainer=first[0]["k1"] + resumed[0]["k1"])
+        out["trainer"] = dict(first=[r["writes"] for r in first], seconds=trainer_s, ranks_equal=ranks_equal)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"parallel phase: {out['phase_s']:.1f} s", flush=True)
+    return launches, out
+
+
 def phase_kernel_times(rng, tag):
     """K3 at the timed shapes, yolov3's six and yolov5s's four (batch 8, bf16, the weight as nn.modules.Conv
     hands it over), K1 at NMS_SHAPES and K2 at yolov3@640's three scales
@@ -2499,6 +2924,8 @@ def main(argv=()):
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run needs a CUDA card",
               file=sys.stderr)
         return 1
+    if argv and argv[0] == "--parallel-worker":  # a rank that phase_parallel started
+        return parallel_worker(argv[1])
     if argv and argv[0] == "--kernel-times":
         if len(argv) > 1:
             sys.path.insert(0, argv[1])  # the package of another tree, ahead of the one beside this file
@@ -2532,13 +2959,14 @@ def main(argv=()):
     model = DetectionModel.from_config("yolov3", seed=0)  # full width, nc=80, on the card
     check(model.num_params() == 61949149, f"yolov3 has {model.num_params()} parameters")
     conv_rows = phase_conv_bn()
-    launches, e2e = phase_main_path(rng, model)
+    launches, e2e, serving_batch = phase_main_path(rng, model)
     http = phase_http(model)
     fast_false = phase_fast_false(model)
     val, val_batches = phase_val(rng, model)
     merge = phase_merge(model, val_batches[0][0][:8])
     hybrid = phase_save_hybrid(model, val_batches, val["f32"]["map50"])
     exported = phase_export(model, val_batches, gpu)
+    parallel_launches, parallel = phase_parallel(model, serving_batch, val_batches, val["f32"]["map50"], gpu)
     del model, val_batches  # its head carries the planted detections; the trainer starts from the seeded init
     jpeg = phase_jpeg(gpu)
     detect = phase_detect(gpu)
@@ -2563,7 +2991,10 @@ def main(argv=()):
              detect_shape=detect["k1"], zoo_launches={k: v["greedy_nms"] for k, v in zoo_launches.items()},
              export_nms_launches_per_call=exported["nms_launches"] / 2,
              export_val_launches={k: v["launches"]["greedy_nms"] for k, v in exported["val"].items()},
-             detect_pt2_launches=detect["pt2_launches"]),
+             detect_pt2_launches=detect["pt2_launches"],
+             parallel_serve_launches=parallel_launches["greedy_nms_serve"],
+             parallel_val_launches=parallel_launches["greedy_nms_val"],
+             parallel_trainer_launches_rank0=parallel_launches["greedy_nms_trainer"]),
         dict(name="masked_scores", route="cuda", source="yolov3_tpu_torch/csrc/score.cu",
              replaces="yolov3_tpu/ops/score_pallas.py:43", launches=launches["masked_scores"],
              max_abs_err=score["max_abs_err"], ms=score["ms"], plain_ms=score["plain_ms"],
@@ -2571,20 +3002,24 @@ def main(argv=()):
              trainer_serve_launches=trainer["serve_launches"]["masked_scores"],
              http_launches=http["launches"]["masked_scores"],
              fast_false_launches=fast_false["launches"]["masked_scores"],
-             zoo_launches={k: v["masked_scores"] for k, v in zoo_launches.items()}),
+             zoo_launches={k: v["masked_scores"] for k, v in zoo_launches.items()},
+             parallel_serve_launches=parallel_launches["masked_scores_serve"]),
         dict(name="conv3x3_bn_stats", route="cuda", source="yolov3_tpu_torch/csrc/conv_bn.cu",
              replaces="yolov3_tpu/ops/conv_bn_pallas.py:33", launches=launches["conv3x3_bn_stats"],
              **{k: conv_rows[K3_MAIN_SHAPE][k]
                 for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
              trainer_launches=trainer_launches["conv3x3_bn_stats"],
              remat_launches_per_step={k: v["k3_per_step"] for k, v in remat.items()},
-             zoo_launches={k: v["conv3x3_bn_stats"] for k, v in zoo_launches.items()}),
+             zoo_launches={k: v["conv3x3_bn_stats"] for k, v in zoo_launches.items()},
+             parallel_world1_launches=parallel_launches["conv3x3_bn_stats_world1"],
+             parallel_launches_per_rank_step=parallel_launches["conv3x3_bn_stats_per_rank_step"],
+             parallel_trainer_launches_per_rank=parallel_launches["conv3x3_bn_stats_trainer"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"nms_shapes": nms_rows, "conv_bn_shapes": conv_rows, "main_path": e2e, "http": http,
                       "fast_false": fast_false, "val": val, "merge": merge, "save_hybrid": hybrid, "train": train,
                       "remat": remat, "trainer": trainer, "jpeg": jpeg, "detect": detect, "zoo": zoo,
-                      "export": exported}))
+                      "export": exported, "parallel": parallel}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -74,11 +74,40 @@ def test_main_without_device_needs_the_card(monkeypatch):
         train.main(train.parse_opt(argv=["--data", str(ROOT / "yolov3_tpu_torch/data/coco128.yaml")]))
 
 
-@pytest.mark.parametrize("argv,match", [(["--sync-bn"], "item 8"), (["--num-processes", "2"], "item 8"),
-                                        (["--resume", "comet://x"], "item 7")])
+@pytest.mark.parametrize("argv,match", [(["--resume", "comet://x"], "item 7")])
 def test_train_unported_options_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         train.main(train.parse_opt(argv=["--device", "cpu", *argv]))
+
+
+@pytest.mark.parametrize("argv,world", [(["--sync-bn"], None), (["--num-processes", "1"], 1)],
+                         ids=["sync-bn", "num-processes"])
+def test_train_multi_process_options(monkeypatch, argv, world):
+    """--sync-bn reaches train() as the no-op it is; --num-processes with a
+    --coordinator joins a gloo group on the CPU for the run (world 1 here;
+    two processes in tests/test_torch_ddp.py) and leaves it after."""
+    import socket
+
+    from yolov3_tpu_torch.parallel import mesh
+    from yolov3_tpu_torch.train import loop
+
+    seen = {}
+
+    def fake_train(**kw):
+        seen.update(kw, grouped=mesh.grouped(), world=mesh.world_size(), backend=mesh.backend())
+        return 0.0, (), None
+
+    monkeypatch.setattr(loop, "train", fake_train)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    extra = ["--coordinator", f"127.0.0.1:{port}", "--process-id", "0"] if world else []
+    train.main(train.parse_opt(argv=["--device", "cpu", "--data", str(ROOT / "yolov3_tpu_torch/data/coco128.yaml"),
+                                     *argv, *extra]))
+    assert seen["device"] == "cpu" and seen["sync_bn"] == ("--sync-bn" in argv)
+    assert seen["grouped"] == bool(world) and seen["world"] == (world or 1)
+    assert seen["backend"] == ("gloo" if world else None)
+    assert not mesh.grouped()
 
 
 def test_val_run_matches_jax(tmp_path):

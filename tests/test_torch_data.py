@@ -250,11 +250,25 @@ def test_check_dataset(dataset_dir, tmp_path):
         check_dataset({**missing, "download": "https://example.invalid/x.zip"})
 
 
-def test_shard_per_host_is_not_ported(dataset_dir):
-    loader = datasets.DataLoader(datasets.DetectionDataset(str(dataset_dir / "images/train"), imgsz=IMGSZ,
-                                                           num_cls=5))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        loader.shard_per_host()
+def test_shard_per_host_takes_round_robin_batches(dataset_dir):
+    """Each rank's batches (the rank and world shard_per_host takes from the
+    process group, set here as the JAX test sets them): round robin over the
+    common count, disjoint, and the same as the JAX loader's for that rank
+    (tests/test_torch_parallel.py holds more shapes); no group means rank 0
+    of 1."""
+    ds = datasets.DetectionDataset(str(dataset_dir / "images/train"), imgsz=IMGSZ, num_cls=5)
+    whole = [list(b) for b in datasets.DataLoader(ds, batch_size=2)._batches()]
+    shards = []
+    for r in range(4):
+        loader = datasets.DataLoader(ds, batch_size=2)
+        loader._host_shard = (r, 4)
+        jax_loader = jax_datasets.DataLoader(ds, batch_size=2)
+        jax_loader._host_shard = (r, 4)
+        got = [list(b) for b in loader._batches()]
+        assert got == [list(b) for b in jax_loader._batches()] and len(loader) == len(jax_loader) == len(got) == 1
+        shards.append(got)
+    assert [b for r in range(4) for b in shards[r]] == whole[:4] and len(whole) == 6
+    assert datasets.DataLoader(ds, batch_size=2).shard_per_host()._host_shard == (0, 1)
 
 
 def test_synthetic_dataset_layout(tmp_path):

@@ -25,6 +25,7 @@ DETECT_MODULES = ("data/loaders.py", "utils/plots.py", "models/loading.py", "mod
                   "models/autoshape.py", "hub.py", "cli/__init__.py", "cli/detect.py", "cli/val.py", "cli/train.py")
 EXPORT_MODULES = ("export.py", "models/backend.py", "models/onnx_native.py", "models/onnx_runtime.py",
                   "cli/benchmarks.py")
+PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py")
 
 
 def imported_roots(path):
@@ -65,6 +66,15 @@ def test_walk_covers_the_detect_modules():
 def test_walk_covers_the_export_modules():
     walked = {str(p.relative_to(ROOT / "yolov3_tpu_torch")) for p in PORT_FILES[:-1]}
     assert set(EXPORT_MODULES) <= walked
+
+
+def test_walk_covers_the_parallel_modules():
+    walked = {str(p.relative_to(ROOT / "yolov3_tpu_torch")) for p in PORT_FILES[:-1]}
+    assert set(PARALLEL_MODULES) <= walked
+
+
+def test_parallel_import_loads_no_jax():
+    _assert_import_loads_no_jax("yolov3_tpu_torch.parallel, yolov3_tpu_torch.parallel.mesh")
 
 
 def test_detect_import_loads_no_jax_cv2_or_pil():

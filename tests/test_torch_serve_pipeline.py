@@ -11,7 +11,7 @@
    bodies, `/health`'s counts, 400 for a body that does not decode, 404 for
    an unknown path; every answer equal to the in-process predict within
    JSON's rounding to 4 places.
-3. What is not ported raises: `mesh`, `shard`, a reference `.pt`.
+3. What is not ported raises: a reference `.pt`; `mesh` and `shard` serve sharded.
 """
 
 import json
@@ -153,10 +153,15 @@ def test_full_path_alone_and_options(served):
     # a smaller per-scale top-k overflows where the default does not
     small = build_batched_infer(model, k_per_scale=(1, 1, 1))
     assert small.fast_fn(imgs)[2].any() and not fast.fast_fn(imgs)[2].any()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_batched_infer(model, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_pipeline(model, IMGSZ, shard=True)
+    # data-parallel: a mesh of two CPU shards gives the unsharded rows; a sharded
+    # pipeline's buckets divide over the mesh (tests/test_torch_sharded.py holds them to JAX)
+    from yolov3_tpu_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh(["cpu", "cpu"])
+    sharded, sharded_n = build_batched_infer(model, mesh=mesh)(imgs)
+    np.testing.assert_array_equal(sharded.numpy(), plain.numpy())
+    np.testing.assert_array_equal(np.asarray(sharded_n), np.asarray(plain_n))
+    assert build_pipeline(model, IMGSZ, max_batch=3, shard=mesh).batcher.buckets == [2, 4]
     # a reference .pt loads through models/loading.py; a missing one is never downloaded
     with pytest.raises(FileNotFoundError, match="never downloaded"):
         make_server("yolov3.pt", device="cpu")

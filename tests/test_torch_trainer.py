@@ -121,13 +121,26 @@ def test_validator_builds_its_loader_like_jax(runs):
     np.testing.assert_allclose(got_maps, want_maps, atol=0.005)
 
 
-@pytest.mark.parametrize("option,item", [("s2d_stem", "item 9"), ("sync_bn", "item 8"),
+@pytest.mark.parametrize("option,item", [("s2d_stem", "item 9"),
                                          ("upload_dataset", "item 7"), ("entity", "item 7"),
                                          ("noplots", "item 5")])
 def test_unported_options_raise(option, item):
     value = False if option == "noplots" else ("team" if option == "entity" else True)
     with pytest.raises(NotImplementedError, match=item):
         train("unused.yaml", device="cpu", **{option: value})
+
+
+def test_sync_bn_is_accepted_as_a_no_op(tmp_path, monkeypatch):
+    """sync_bn logs the JAX package's line and goes on (here to the missing
+    dataset): the statistics are the global batch's under a process group
+    already (tests/test_torch_ddp.py)."""
+    from yolov3_tpu_torch.train import loop
+
+    lines = []
+    monkeypatch.setattr(loop.LOGGER, "info", lambda msg, *a, **k: lines.append(msg))
+    with pytest.raises(FileNotFoundError):
+        train(str(tmp_path / "unused.yaml"), device="cpu", sync_bn=True, save_dir=tmp_path / "run")
+    assert any("--sync-bn: BatchNorm stats are global-batch by construction" in ln for ln in lines)
 
 
 def test_autobatch_needs_the_card():

@@ -341,6 +341,25 @@ def test_val_detections_match_jax(val_runs):
     assert sum(map(len, want.values())) > 20
 
 
+def test_val_sharded_equals_unsharded(val_runs):
+    """validator.run over a mesh of two CPU shards (the last batch, of one
+    image, unsharded): the same metrics, per-image detections and losses as
+    the unsharded run, with the loss of the whole batch."""
+    from yolov3_tpu_torch.parallel.mesh import create_mesh
+
+    model, data = val_runs["model"], val_runs["data"]
+    rec = Recorder()
+    results, maps, _ = validator.run(data, model=model, batch_size=2, imgsz=IMGSZ, dataloader=val_runs["batches"],
+                                     loss_cfg=LossConfig.from_model(model.spec, HYP), compute_loss_flag=True,
+                                     callbacks=rec, sharded=create_mesh(["cpu", "cpu"]))
+    np.testing.assert_allclose(np.array(results, np.float64), val_runs["port"]["results"], rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(maps, val_runs["port"]["maps"], rtol=1e-5, atol=1e-7)
+    want = val_runs["port"]["preds"]
+    assert sorted(rec.preds) == sorted(want)
+    for stem, w in want.items():
+        np.testing.assert_allclose(rec.preds[stem], w, rtol=1e-5, atol=1e-4, err_msg=stem)
+
+
 def test_val_losses_match_jax(val_runs):
     got, want = val_runs["port"]["results"][4:], val_runs["jax"]["results"][4:]
     assert len(got) == 3 and (want > 0).all()
@@ -429,7 +448,9 @@ def test_val_save_hybrid_matches_jax(val_runs):
     # augment (TTA) is ported (tests/test_torch_tta.py): accepted, the call goes on to need `data`
     (dict(augment=True, dataloader=None), ValueError, "needs `data`"),
     (dict(plots=True), NotImplementedError, "item 5"),
-    (dict(sharded=True), NotImplementedError, "item 8"),
+    # sharded=True shards over every local card, and the CPU has none (a Mesh of CPU devices
+    # shards there: tests/test_torch_sharded.py)
+    (dict(sharded=True), RuntimeError, "no CUDA device"),
     # item 9 is ported: without a dataloader `run` reads `data` (a dataset YAML or dict) and raises
     # what reading it raises; tests/test_torch_trainer.py holds the loader it builds to the JAX one's
     (dict(dataloader=None), ValueError, "needs `data`"),

@@ -3,11 +3,18 @@
     python -m yolov3_tpu_torch.cli.train --data coco128.yaml --cfg yolov3-tiny --imgsz 640 --batch-size 16 --epochs 3
 
 `--device` unset means the card; `--device cpu` the CPU. `--evolve N` runs
-the genetic hyper-parameter search (train/evolve.py). Not ported, and
-raising: `--sync-bn` and multi-process runs (`--num-processes`,
-`--coordinator`; ROADMAP.md queue 1 item 8), `--entity` / `--upload_dataset`
-and a Comet resume (item 7), `--s2d-stem` (item 9). Plots are not ported
-(item 5): the run trains without them, as with `--noplots`.
+the genetic hyper-parameter search (train/evolve.py).
+
+Multi-process data-parallel training, one process per card, each started
+with its rank (train.loop.train; parallel/mesh.py):
+
+    python -m yolov3_tpu_torch.cli.train --data coco128.yaml --coordinator host:port --num-processes N --process-id i
+
+`--batch-size` is per process; BatchNorm statistics are the global batch's,
+so `--sync-bn` is accepted and changes nothing. Not ported, and raising:
+`--entity` / `--upload_dataset` and a Comet resume (ROADMAP.md queue 1 item
+7), `--s2d-stem` (item 9). Plots are not ported (item 5): the run trains
+without them, as with `--noplots`.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ def parse_opt(known=False, argv=None):
     parser.add_argument("--data", type=str, default="coco128.yaml")
     parser.add_argument("--hyp", type=str, default="", help="hyperparameters yaml")
     parser.add_argument("--epochs", type=int, default=100)
-    parser.add_argument("--batch-size", type=int, default=16, help="global batch size across all devices")
+    parser.add_argument("--batch-size", type=int, default=16, help="batch size of each process")
     parser.add_argument("--imgsz", "--img", "--img-size", type=int, default=640)
     parser.add_argument("--noval", action="store_true")
     parser.add_argument("--nosave", action="store_true")
@@ -38,7 +45,8 @@ def parse_opt(known=False, argv=None):
     parser.add_argument("--rect", action="store_true", help="rectangular training (aspect-ratio batches)")
     parser.add_argument("--noplots", action="store_true", help="save no plot image artifacts")
     parser.add_argument("--label-smoothing", type=float, default=0.0, help="label smoothing epsilon")
-    parser.add_argument("--sync-bn", action="store_true", help="SyncBatchNorm (multi-GPU; not ported: raises)")
+    parser.add_argument("--sync-bn", action="store_true",
+                        help="SyncBatchNorm: BatchNorm statistics are the global batch's already (no-op)")
     parser.add_argument("--workers", type=int, default=2, help="dataloader decode threads")
     parser.add_argument("--cache", type=str, nargs="?", const="ram", default=None,
                         choices=["ram", "disk"], help="cache pre-resized images")
@@ -62,7 +70,7 @@ def parse_opt(known=False, argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--save-period", type=int, default=-1)
     parser.add_argument("--device", default="", help="cuda (the default) or cpu")
-    parser.add_argument("--coordinator", type=str, default=None, help="host:port of process 0 (not ported: raises)")
+    parser.add_argument("--coordinator", type=str, default=None, help="host:port of process 0")
     parser.add_argument("--num-processes", type=int, default=None)
     parser.add_argument("--process-id", type=int, default=None)
     return parser.parse_known_args(argv)[0] if known else parser.parse_args(argv)
@@ -70,16 +78,25 @@ def parse_opt(known=False, argv=None):
 
 def main(opt=None):
     """Train as `opt` says; returns train()'s (best_fitness, results, save_dir),
-    or evolve()'s (best hyp, best fitness) with --evolve."""
-    from yolov3_tpu_torch.train.loop import train
-    from yolov3_tpu_torch.utils.general import yaml_load
+    or evolve()'s (best hyp, best fitness) with --evolve. With
+    `--num-processes` (or a `--coordinator`) the process joins the group
+    first and leaves it at the end."""
+    from yolov3_tpu_torch.parallel.mesh import destroy_distributed, initialize_distributed
 
     opt = opt or parse_opt()
     device = opt.device or None  # unset: the card
-    if opt.num_processes or opt.coordinator:
-        raise NotImplementedError("multi-process training is not ported yet (ROADMAP.md queue 1 item 8)")
-    if opt.sync_bn:
-        raise NotImplementedError("--sync-bn (SyncBatchNorm across GPUs) is not ported yet (ROADMAP.md queue 1 item 8)")
+    grouped = initialize_distributed(opt.coordinator, opt.num_processes, opt.process_id, device=device)
+    try:
+        return _main(opt, device)
+    finally:
+        if grouped:
+            destroy_distributed()
+
+
+def _main(opt, device):
+    from yolov3_tpu_torch.train.loop import train
+    from yolov3_tpu_torch.utils.general import yaml_load
+
     print_args(vars(opt))
     if not opt.noplots:
         LOGGER.warning("plots are not ported yet (ROADMAP.md queue 1 item 5): training as with --noplots")

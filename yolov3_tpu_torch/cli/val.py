@@ -5,7 +5,8 @@
 Tasks: val / test (mAP), speed (conf 0.25, iou 0.45), study (mAP against
 imgsz 256..1536, saved to study_*.txt). Several `--weights` make a
 concat-NMS Ensemble. `--device` unset means the card; `--device cpu` the
-CPU. `--sharded` raises (multi-GPU validation, ROADMAP.md queue 1 item 8).
+CPU. `--sharded` validates data-parallel over every local card (a replica
+of the model on each, each batch's rows split over them; eval.validator.run).
 """
 
 from __future__ import annotations
@@ -99,7 +100,7 @@ def parse_opt(argv=None):
                         help="inject ground-truth boxes into NMS (hybrid autolabelling)")
     parser.add_argument("--half", action="store_true", help="bf16 inference (reference --half fp16 analog)")
     parser.add_argument("--sharded", action="store_true",
-                        help="data-parallel validation over several GPUs (not ported yet: raises)")
+                        help="data-parallel validation over every local GPU")
     parser.add_argument("--workers", type=int, default=1, help="dataloader decode threads")
     parser.add_argument("--device", default="", help="cuda (the default) or cpu")
     parser.add_argument("--project", default="runs/val")

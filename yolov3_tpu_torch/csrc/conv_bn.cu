@@ -12,7 +12,11 @@
 // so any H and W are taken), K = 9 * Cin, N = Cout, and blocks run
 // concurrently: each block writes its own per-channel partial sums and a
 // second kernel adds them in a fixed order (in double). No float atomics: two
-// runs on the same inputs give the same bits. The weight is read as
+// runs on the same inputs give the same bits. Under a process group (the
+// statistics of the global batch, yolov3_tpu_torch/parallel/mesh.py) the
+// second kernel also writes the channel sums in double, the caller adds them
+// over the ranks, and a third kernel (bn_stats_from_sums_launch) divides them
+// by the global n with the same expression. The weight is read as
 // (Cout, 3, 3, Cin), the bytes of PyTorch's OIHW conv weight in channels_last,
 // which is the GEMM's B with K contiguous.
 //
@@ -904,11 +908,22 @@ conv3x3_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ 
 
 // ------------------------------------------------------------ finalize ----
 
+// mean = S / n, var = Q / n - mu^2 (biased), in double: the one expression of
+// both kernels below.
+__device__ __forceinline__ void finalize_stats(double S, double Q, double n, float* mean, float* var) {
+  const double mu = S / n;
+  *mean = (float)mu;
+  *var = (float)(Q / n - mu * mu);
+}
+
 // partial: (rows, 2, Cout) block sums. One thread column per channel, 32 row
 // lanes, each summing its rows in order, then the lanes in order: the same
-// order every run. mean = S / n, var = Q / n - mean^2 (biased), in double.
+// order every run. Writes mean and var over n (finalize_stats) and, where
+// `sums` is not null, the channel sums themselves, sums = [S (Cout), Q (Cout),
+// n] in double, for a caller that adds them over a process group.
 __global__ void bn_stats_finalize_kernel(const float* __restrict__ partial, float* __restrict__ mean,
-                                         float* __restrict__ var, int rows, int Cout, double n) {
+                                         float* __restrict__ var, double* __restrict__ sums, int rows, int Cout,
+                                         double n) {
   __shared__ double ss[32][33];
   __shared__ double qq[32][33];
   const int tx = threadIdx.x;
@@ -930,10 +945,20 @@ __global__ void bn_stats_finalize_kernel(const float* __restrict__ partial, floa
       S += ss[i][tx];
       Q += qq[i][tx];
     }
-    const double mu = S / n;
-    mean[c] = (float)mu;
-    var[c] = (float)(Q / n - mu * mu);
+    finalize_stats(S, Q, n, &mean[c], &var[c]);
+    if (sums != nullptr) {
+      sums[c] = S;
+      sums[Cout + c] = Q;
+      if (c == 0) sums[2 * Cout] = n;
+    }
   }
+}
+
+// mean and var from sums = [S (Cout), Q (Cout), n] (added over the ranks).
+__global__ void bn_stats_from_sums_kernel(const double* __restrict__ sums, float* __restrict__ mean,
+                                          float* __restrict__ var, int Cout) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c < Cout) finalize_stats(sums[c], sums[Cout + c], sums[2 * Cout], &mean[c], &var[c]);
 }
 
 inline int grid_rows(long long M, int tile_m) {
@@ -1079,12 +1104,14 @@ extern "C" int conv3x3_bn_stats_partial_rows(int B, int H, int W, int is_bf16) {
 
 // x (B, H, W, Cin) and w (Cout, 3, 3, Cin) contiguous, bf16 (is_bf16 = 1) or
 // f32; y (B, H, W, Cout) in the same type; partial the f32 scratch above;
-// mean, var (Cout,) f32. All device pointers on `stream`. Returns the
-// cudaError_t of the launches (0 on success; 20000 + a CUresult if a tensor
-// map could not be encoded) and writes the kernel taken to *route.
+// mean, var (Cout,) f32; sums null, or (2 Cout + 1,) f64 for the channel sums
+// [S, Q, n] of a statistic over a process group. All device pointers on
+// `stream`. Returns the cudaError_t of the launches (0 on success; 20000 + a
+// CUresult if a tensor map could not be encoded) and writes the kernel taken
+// to *route.
 extern "C" int conv3x3_bn_stats_launch(const void* x, const void* w, void* y, void* partial, void* mean,
-                                       void* var, int B, int H, int W, int Cin, int Cout, int is_bf16,
-                                       void* stream, int* route) {
+                                       void* var, void* sums, int B, int H, int W, int Cin, int Cout,
+                                       int is_bf16, void* stream, int* route) {
   const long long M = (long long)B * H * W;
   if (M <= 0 || M > 0x7fffffffLL || Cin <= 0 || Cout <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1128,6 +1155,15 @@ extern "C" int conv3x3_bn_stats_launch(const void* x, const void* w, void* y, vo
   }
   if (err) return err;
   bn_stats_finalize_kernel<<<(Cout + 31) / 32, dim3(32, 32), 0, st>>>(
-      part, static_cast<float*>(mean), static_cast<float*>(var), rows, Cout, (double)M);
+      part, static_cast<float*>(mean), static_cast<float*>(var), static_cast<double*>(sums), rows, Cout,
+      (double)M);
+  return (int)cudaGetLastError();
+}
+
+// mean, var (Cout,) f32 from sums = [S (Cout), Q (Cout), n] in double.
+extern "C" int bn_stats_from_sums_launch(const void* sums, void* mean, void* var, int Cout, void* stream) {
+  if (Cout <= 0) return (int)cudaErrorInvalidValue;
+  bn_stats_from_sums_kernel<<<(Cout + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(sums), static_cast<float*>(mean), static_cast<float*>(var), Cout);
   return (int)cudaGetLastError();
 }

@@ -443,12 +443,15 @@ class DataLoader:
         self._indices_override = None
         self._ms_sizes = None
         self.ms_offset = 0
+        self._host_shard = (0, 1)  # (rank, world) of shard_per_host
         if quad:
             assert batch_size % 4 == 0, "--quad requires batch size divisible by 4"
 
     def __len__(self):
         n = len(self.dataset)
-        return n // self.batch_size if self.drop_last else math.ceil(n / self.batch_size)
+        nb = n // self.batch_size if self.drop_last else math.ceil(n / self.batch_size)
+        # sharded: the count common to every rank (see _batches)
+        return nb // self._host_shard[1]
 
     def set_indices(self, indices):
         """Override the sampling order of the next epoch (image-weights resampling)."""
@@ -479,7 +482,15 @@ class DataLoader:
         return (image_ops.resize_linear(sample[0], (ms, ms)), *sample[1:])
 
     def shard_per_host(self):
-        raise NotImplementedError("multi-host data sharding is not ported yet (ROADMAP.md queue 1 item 8)")
+        """Restrict the batches to this rank's of the process group:
+        round-robin batches, b = rank, rank + world, ..., so a rect
+        dataset's batch-shape groups stay whole and balanced, over the count
+        common to every rank (each step needs every rank). Label buckets
+        must be off: every rank pads its labels alike."""
+        from yolov3_tpu_torch.parallel import mesh
+
+        self._host_shard = (mesh.rank(), mesh.world_size())
+        return self
 
     def _batches(self):
         idx = self._indices_override
@@ -490,7 +501,9 @@ class DataLoader:
         else:
             self._indices_override = None
         n_batches = len(idx) // self.batch_size if self.drop_last else math.ceil(len(idx) / self.batch_size)
-        for b in range(n_batches):
+        i0, nh = self._host_shard
+        n_batches = (n_batches // nh) * nh
+        for b in range(i0, n_batches, nh):
             yield idx[b * self.batch_size : (b + 1) * self.batch_size]
 
     def __iter__(self):

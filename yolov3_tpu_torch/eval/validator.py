@@ -46,7 +46,6 @@ from yolov3_tpu_torch.utils.general import LOGGER, Profile, coco80_to_coco91_cla
 # arguments of the JAX `run` this port does not take yet, and the ROADMAP.md item that brings each
 NOT_PORTED = {
     "plots": "plots (ROADMAP.md queue 1 item 5)",
-    "sharded": "sharded validation (ROADMAP.md queue 1 item 8)",
 }
 
 
@@ -99,14 +98,21 @@ def run(
     validator's non-native path (square letterbox, no loss, no TTA, half
     off), the artifact's predictions going straight to the multi-label
     `batched_nms` on the backend's device.
-    `plots` and `sharded` raise NotImplementedError when set (NOT_PORTED).
+    sharded: data-parallel validation of a DetectionModel over a
+    parallel.mesh.Mesh (`sharded` itself, or with True every local card):
+    a replica of the model on each device, each batch's rows split evenly,
+    each device running its rows' forward, decode and NMS (the NMS kernel
+    once a shard), the detections gathered on the model's device (the
+    mesh's first); a batch the mesh does not divide runs unsharded, and the
+    loss, where asked for, is the whole batch's, as in the JAX validator.
+    `plots` raises NotImplementedError when set (NOT_PORTED).
 
     Returns ((mp, mr, map50, map, *losses), per_class_maps, speeds_ms).
     """
     from yolov3_tpu_torch.models.backend import MultiBackend
     from yolov3_tpu_torch.models.ensemble import Ensemble
 
-    for name, value in dict(plots=plots, sharded=sharded).items():
+    for name, value in dict(plots=plots).items():
         if value:
             raise NotImplementedError(f"validator.run: {NOT_PORTED[name]} is not ported yet")
     if not isinstance(model, (DetectionModel, Ensemble, MultiBackend)):
@@ -143,8 +149,13 @@ def run(
         conf_thres, save_json = 0.25, False
     nms_iou = 0.45 if task == "speed" else iou_thres
     with_loss = bool(compute_loss_flag and loss_cfg is not None and not save_hybrid and native)
+    mesh = None
+    if sharded and native:
+        from yolov3_tpu_torch.parallel.mesh import Mesh, create_mesh
+
+        mesh = sharded if isinstance(sharded, Mesh) else create_mesh()
     forward = make_forward(model, conf_thres, nms_iou, max_det, max_nms, loss_cfg=loss_cfg if with_loss else None,
-                           half=half, nms_fn=nms_fn, decode_only=save_hybrid, augment=augment)
+                           half=half, nms_fn=nms_fn, decode_only=save_hybrid, augment=augment, mesh=mesh)
 
     stats = []
     loss_sum = np.zeros(3)
@@ -269,7 +280,7 @@ def run(
 
 
 def make_forward(model, conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30000, loss_cfg=None, half=False,
-                 nms_fn=None, decode_only=False, augment=False):
+                 nms_fn=None, decode_only=False, augment=False, mesh=None):
     """The per-batch device program of `run` (the JAX package's
     `_cached_forward`): uint8 (B, H, W, 3) images on the model's device ->
     (dets (B, max_det, 6), n (B,)), plus the loss components (3,) when
@@ -279,6 +290,7 @@ def make_forward(model, conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30
     `decode_predictions` (augment=True: the TTA passes of
     `predict_augmented`); multi-label `batched_nms` through `nms_fn`.
     decode_only: return the decoded predictions (B, N, 5+nc) and stop there.
+    mesh: a parallel.mesh.Mesh to shard each batch over (see `run`).
     An Ensemble's or a MultiBackend's decoded predictions come from calling it
     (a MultiBackend of a pt2 exported with NMS cannot serve: its NMS is not
     the val-grade one)."""
@@ -303,27 +315,39 @@ def make_forward(model, conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30
         net = model
     anchors, strides = model.anchors_px, model.spec.strides
 
-    @torch.inference_mode()
-    def forward(imgs_u8, targets=None, tmask=None):
-        was_training = net.training
-        net.eval()
+    def one(net_i, imgs_u8):
+        """The forward, the decode and the NMS of one replica on its device:
+        pred, or (dets, n_valid, *feats) (feats only where the loss is asked for)."""
+        was_training = net_i.training
+        net_i.eval()
         try:
-            x = torch.as_tensor(imgs_u8, device=model.device).float() / 255.0
+            x = torch.as_tensor(imgs_u8).to(next(net_i.parameters()).device).float() / 255.0
             if augment and loss_cfg is None:  # with the loss, the JAX validator runs the plain forward
-                feats, pred = None, predict_augmented(net, x)
+                feats, pred = None, predict_augmented(net_i, x)
             else:
-                feats = net(x)
+                feats = net_i(x)
                 pred = decode_predictions(feats, anchors, strides)
             if decode_only:
                 return pred
             dets, n_valid = batched_nms(pred, conf_thres=conf_thres, iou_thres=iou_thres, multi_label=True,
                                         max_det=max_det, max_nms=max_nms, nms_fn=nms_fn)
-            if loss_cfg is None:
-                return dets, n_valid
-            _, comps = compute_loss(list(feats), targets, tmask, loss_cfg)
-            return dets, n_valid, comps
+            return (dets, n_valid) if loss_cfg is None else (dets, n_valid, *feats)
         finally:
-            net.train(was_training)
+            net_i.train(was_training)
+
+    nets = mesh.replicas(net) if mesh is not None else None
+
+    @torch.inference_mode()
+    def forward(imgs_u8, targets=None, tmask=None):
+        if nets is not None and mesh.divides(len(imgs_u8)):
+            out = mesh.map(lambda i, x: one(nets[i], x), imgs_u8, device=model.device)
+        else:  # one device; under a mesh, a batch it does not divide
+            out = one(net, torch.as_tensor(imgs_u8, device=model.device))
+        if decode_only or loss_cfg is None:
+            return out
+        dets, n_valid, *feats = out
+        _, comps = compute_loss(feats, targets, tmask, loss_cfg)  # the whole batch's loss
+        return dets, n_valid, comps
 
     return forward
 

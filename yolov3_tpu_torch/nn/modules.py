@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from yolov3_tpu_torch.nn.activations import get_activation
 from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
+from yolov3_tpu_torch.parallel.mesh import all_reduce_sum, statistics_synchronized, world_size
 
 BN_EPS = 1e-3  # the JAX package's BatchNorm epsilon
 BN_MOMENTUM = 0.03  # torch convention of flax's decay 0.97
@@ -70,16 +71,57 @@ class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d at the JAX package's eps and momentum (TorchBatchNorm:
     the running variance is Bessel-corrected). Inside an activation-checkpoint
     recompute (`recomputing`) it normalises with the batch statistics and
-    leaves the running statistics and the counter alone."""
+    leaves the running statistics and the counter alone.
+
+    In train mode when `statistics_synchronized()` (inside the train step,
+    under a process group of more than one rank), the statistics are the
+    global batch's, as under the JAX package's mesh (`global_batch_norm`)."""
 
     def __init__(self, c):
         super().__init__(c, eps=BN_EPS, momentum=BN_MOMENTUM)
 
     def forward(self, x):
+        if self.training and statistics_synchronized():
+            return global_batch_norm(x, self)
         if self.training and in_recompute():
             # momentum 0 leaves the running statistics' values as they are
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, True, 0.0, self.eps)
         return super().forward(x)
+
+
+def global_batch_norm(x, bn):
+    """Train-mode BatchNorm over the global batch of a process group, in
+    F.batch_norm's arithmetic: each rank's channel mean and biased variance
+    (computed in f32 at least) become its sums [n mean, n (var + mean^2), n]
+    in float64, which a differentiable all-reduce adds over the ranks
+    (parallel.mesh.all_reduce_sum: the sums forward, their cotangents
+    backward, as SyncBatchNorm does); then mean = S / N, var = Q / N - mean^2
+    and y = x * scale + shift. The running statistics move by momentum with
+    the variance Bessel-corrected over the global N (not inside a recompute).
+    torch.nn.SyncBatchNorm is not used: it refuses CPU tensors."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc)
+    var_l, mean_l = torch.var_mean(xf, (0, 2, 3), unbiased=False)
+    n = float(x.numel() // x.shape[1])
+    local = torch.cat([mean_l * n, (var_l + mean_l * mean_l) * n,
+                       torch.full((1,), n, dtype=acc, device=x.device)]).double()
+    sums = all_reduce_sum(local)
+    c = x.shape[1]
+    total = sums[2 * c]
+    mean = sums[:c] / total
+    var = (sums[c:2 * c] / total - mean * mean).to(acc).clamp(min=0.0)
+    mean = mean.to(acc)
+    scale = bn.weight.to(acc) * torch.rsqrt(var + bn.eps)
+    shift = bn.bias.to(acc) - mean * scale
+    out = torch.addcmul(shift[None, :, None, None], xf, scale[None, :, None, None]).to(x.dtype)
+    if not in_recompute():
+        with torch.no_grad():  # no host sync: the Bessel factor stays on the device
+            m = bn.momentum
+            bessel = total / (total - 1).clamp(min=1.0)
+            bn.running_mean.mul_(1.0 - m).add_(mean.to(bn.running_mean.dtype), alpha=m)
+            bn.running_var.mul_(1.0 - m).add_((var * (m * bessel)).to(bn.running_var.dtype))
+            bn.num_batches_tracked += 1
+    return out
 
 
 class Conv(nn.Module):
@@ -120,13 +162,17 @@ class Conv(nn.Module):
         x = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)  # NHWC view
         y, mean, var = self.bn_stats_fn(x, self.conv.weight.permute(2, 3, 1, 0))
         var = var.clamp(min=0.0)  # E[y^2] - mean^2 can round below 0
-        scale = bn.weight.float() * torch.rsqrt(var + bn.eps)
-        shift = bn.bias.float() - mean * scale
+        # in the statistics' dtype: float32 (float64 for a float64 model, whose BatchNorm
+        # parameters would otherwise round their gradients to float32)
+        scale = bn.weight.to(mean.dtype) * torch.rsqrt(var + bn.eps)
+        shift = bn.bias.to(mean.dtype) - mean * scale
         out = torch.addcmul(shift.to(y.dtype), y, scale.to(y.dtype))
         if in_recompute():
             return out.permute(0, 3, 1, 2)
         with torch.no_grad():
             n = y.numel() // y.shape[-1]
+            if statistics_synchronized():
+                n *= world_size()  # the global batch's (ranks take equal batches)
             m = bn.momentum
             bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             bn.running_var.mul_(1.0 - m).add_(var, alpha=m * n / max(n - 1, 1))

@@ -45,11 +45,48 @@ from yolov3_tpu_torch.models.loading import load_weights
 from yolov3_tpu_torch.ops.nms import batched_nms, nms_from_candidates
 from yolov3_tpu_torch.utils.general import LOGGER
 
-MULTI_GPU = "multi-GPU serving is not ported yet (ROADMAP.md queue 1 item 8)"
-
-
 def _host(t):
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _paths(full_model, serving, conf_thres, iou_thres, max_det, k_per_scale):
+    """(full_fn, fast_fn) of one replica: the float32 full path on
+    `full_model`, the fast path on the fused bf16 `serving` model (None: no
+    fast path), each on its model's device."""
+    device = full_model.device
+    anchors, strides = full_model.anchors_px, full_model.spec.strides
+
+    @torch.inference_mode()
+    def full_fn(imgs_u8):
+        x = torch.as_tensor(imgs_u8).to(device).float() / 255.0
+        pred = decode_predictions(full_model(x), anchors, strides)
+        return batched_nms(pred, conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det,
+                           max_nms=8192)
+
+    if serving is None:
+        return full_fn, None
+
+    @torch.inference_mode()
+    def fast_fn(imgs_u8):
+        x = torch.as_tensor(imgs_u8).to(device).to(serving.dtype) / 255.0  # uint8 is exact in bf16
+        feats = serving(x, raw=True)
+        boxes, scores, cls_ids, overflow = decode_topk_nhwc(
+            feats, anchors, strides, k_per_scale=k_per_scale, conf_thres=conf_thres, with_overflow=True)
+        dets, n = nms_from_candidates(boxes, scores, cls_ids, iou_thres=iou_thres, max_det=max_det)
+        return dets, n, overflow
+
+    return full_fn, fast_fn
+
+
+def _sharded(mesh, fns, device):
+    """fns[i] over shard i of a batch the mesh divides, gathered on `device`;
+    a batch it does not divide runs unsharded through fns[0]."""
+    def run(imgs_u8):
+        if not mesh.divides(len(imgs_u8)):
+            return fns[0](imgs_u8)
+        return mesh.map(lambda i, x: fns[i](x), imgs_u8, device=device)
+
+    return run
 
 
 def build_batched_infer(model, conf_thres=0.25, iou_thres=0.45, max_det=300, fast=True, mesh=None,
@@ -68,34 +105,32 @@ def build_batched_infer(model, conf_thres=0.25, iou_thres=0.45, max_det=300, fas
     fast=False returns the full path alone: the float32 unfused forward,
     `decode_predictions` and `batched_nms` (max_nms 8192).
 
+    `mesh` (parallel.mesh.Mesh): data-parallel serving. Each device of the
+    mesh holds a replica of the model (and of the fused serving model), a
+    batch's rows are split evenly over the devices, each runs its rows
+    through the whole path (the score kernel three times and the NMS kernel
+    once a shard), and the results are gathered on the mesh's first device,
+    where the model must be. The batch falls back to the full path when any
+    shard overflows. A batch the mesh does not divide runs unsharded on the
+    first device (MicroBatcher's `min_bucket` keeps buckets divisible).
+
     `s2d` (the JAX package's space-to-depth stem, a TPU layout) is an exact
-    transform: it is accepted and the plain layout computed. `mesh` raises.
+    transform: it is accepted and the plain layout computed.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"build_batched_infer(mesh=...): {MULTI_GPU}")
     full_model = model.eval()
     device = model.device
-    anchors, strides = model.anchors_px, model.spec.strides
-
-    @torch.inference_mode()
-    def full_fn(imgs_u8):
-        x = torch.as_tensor(imgs_u8).to(device).float() / 255.0
-        pred = decode_predictions(full_model(x), anchors, strides)
-        return batched_nms(pred, conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det,
-                           max_nms=8192)
-
+    if mesh is not None and mesh.devices[0] != device:
+        raise ValueError(f"build_batched_infer: the model is on {device}, the mesh starts at {mesh.devices[0]}")
+    serving = cast_for_inference(model.fuse()) if fast else None
+    if mesh is None:
+        full_fn, fast_fn = _paths(full_model, serving, conf_thres, iou_thres, max_det, k_per_scale)
+    else:
+        fulls, servings = mesh.replicas(full_model), mesh.replicas(serving) if fast else [None] * mesh.size
+        paths = [_paths(f, sv, conf_thres, iou_thres, max_det, k_per_scale) for f, sv in zip(fulls, servings)]
+        full_fn = _sharded(mesh, [p[0] for p in paths], device)
+        fast_fn = _sharded(mesh, [p[1] for p in paths], device) if fast else None
     if not fast:
         return full_fn
-    serving = cast_for_inference(model.fuse())
-
-    @torch.inference_mode()
-    def fast_fn(imgs_u8):
-        x = torch.as_tensor(imgs_u8).to(device).to(serving.dtype) / 255.0  # uint8 is exact in bf16
-        feats = serving(x, raw=True)
-        boxes, scores, cls_ids, overflow = decode_topk_nhwc(
-            feats, anchors, strides, k_per_scale=k_per_scale, conf_thres=conf_thres, with_overflow=True)
-        dets, n = nms_from_candidates(boxes, scores, cls_ids, iou_thres=iou_thres, max_det=max_det)
-        return dets, n, overflow
 
     def infer(imgs_u8):
         imgs = torch.as_tensor(imgs_u8).to(device, non_blocking=True)
@@ -118,23 +153,26 @@ class MicroBatcher:
     """Dynamic request batching: coalesce concurrent predicts into one device call.
 
     Requests arriving within `batch_wait_ms` of the first queued item are
-    stacked (up to `max_batch`), padded to the next power-of-two bucket (or
-    max_batch), executed once, and the rows are scattered back to the
-    waiting threads.
+    stacked (up to `max_batch`), padded to the next bucket, executed once,
+    and the rows are scattered back to the waiting threads. The buckets are
+    min_bucket, 2 min_bucket, 4 min_bucket, ... below max_batch, then
+    max_batch itself, or the next doubling where max_batch is not a multiple
+    of min_bucket: sharded serving sets min_bucket to the mesh's size, so
+    every bucket divides over it.
     """
 
-    def __init__(self, infer, max_batch=8, batch_wait_ms=5.0):
-        if max_batch < 1:
-            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+    def __init__(self, infer, max_batch=8, batch_wait_ms=5.0, min_bucket=1):
+        if not 1 <= min_bucket <= max_batch:
+            raise ValueError(f"MicroBatcher: need 1 <= min_bucket <= max_batch, got {min_bucket}, {max_batch}")
         self.infer = infer
         self.wait_s = batch_wait_ms / 1e3
         self.buckets = []
-        b = 1
+        b = min_bucket
         while b < max_batch:
             self.buckets.append(b)
             b *= 2
-        self.buckets.append(max_batch)
-        self.max_batch = max_batch
+        self.buckets.append(max_batch if max_batch % min_bucket == 0 else b)
+        self.max_batch = self.buckets[-1]
         self.q = queue.Queue()
         self.calls = 0
         self.requests = 0
@@ -198,15 +236,21 @@ def build_pipeline(model, imgsz=640, conf_thres=0.25, iou_thres=0.45, max_det=30
     MicroBatcher -> `build_batched_infer` -> boxes scaled back to the
     image's pixels. predict(im_bgr (H, W, 3) uint8) -> (n, 6) float32;
     `predict.batcher` is the MicroBatcher. The JAX package's automatic
-    space-to-depth stem decides nothing here (the layout is plain), and
-    shard=True raises."""
+    space-to-depth stem decides nothing here (the layout is plain).
+    shard=True: data-parallel serving over every local card
+    (parallel.mesh.create_mesh()), or over the devices of `shard` when it is
+    a Mesh; the buckets start at the mesh's size."""
     from yolov3_tpu_torch.data.augment import letterbox
     from yolov3_tpu_torch.ops.boxes import scale_boxes
+    from yolov3_tpu_torch.parallel.mesh import Mesh, create_mesh
 
+    mesh = None
     if shard:
-        raise NotImplementedError(f"build_pipeline(shard=True): {MULTI_GPU}")
-    infer = build_batched_infer(model, conf_thres, iou_thres, max_det, fast=fast)
-    batcher = MicroBatcher(infer, max_batch=max_batch, batch_wait_ms=batch_wait_ms)
+        mesh = shard if isinstance(shard, Mesh) else create_mesh()
+    min_bucket = mesh.size if mesh is not None else 1
+    infer = build_batched_infer(model, conf_thres, iou_thres, max_det, fast=fast, mesh=mesh)
+    batcher = MicroBatcher(infer, max_batch=max(max_batch, min_bucket), batch_wait_ms=batch_wait_ms,
+                           min_bucket=min_bucket)
 
     def predict(im_bgr):
         h0, w0 = im_bgr.shape[:2]
@@ -343,7 +387,7 @@ def main():
     p.add_argument("--batch-wait-ms", type=float, default=5.0, help="micro-batching: wait after first queued request")
     p.add_argument("--no-fast", action="store_true",
                    help="use the full-parity pipeline instead of the fused bf16 fast path")
-    p.add_argument("--shard", action="store_true", help="data-parallel serving (not ported: raises)")
+    p.add_argument("--shard", action="store_true", help="data-parallel serving over every local card")
     p.add_argument("--device", default=None, help="cuda (the default) or cpu")
     a = p.parse_args()
     serve(a.weights, a.host, a.port, a.imgsz, a.conf_thres, a.iou_thres,

@@ -24,10 +24,21 @@ exactly, not the data order an uninterrupted run would have seen.
 `remat=True` checkpoints the train step's forward in segments
 (train/step.py); the recompute updates no BatchNorm statistic.
 
+Multi-process (parallel/mesh.py): every process of an initialized process
+group calls `train` with the same arguments and trains on the card
+cuda:{rank % cards}. `batch_size` is per process, and the optimizer's total
+batch is batch_size x world size (JAX loop.py:236-239). The train loader
+takes its rank's round-robin batches (`shard_per_host`, label buckets off),
+the train step the global batch's loss and BatchNorm statistics; rank 0
+alone writes the run directory's files and checkpoints and validates, and
+broadcasts the results before the early stopper (JAX :391-400), so every
+rank stops together. `resume=True` resumes every rank from weights/last.
+`sync_bn` is accepted and changes nothing: the statistics are the global
+batch's already (JAX :99-102).
+
 Not ported (each raises NotImplementedError): `s2d_stem` (ROADMAP.md queue
-1 item 9), `sync_bn` and multi-process runs (item 8), `upload_dataset` and
-`entity` (item 7) and plots: `noplots` defaults to True here, and
-`noplots=False` raises (item 5).
+1 item 9), `upload_dataset` and `entity` (item 7) and plots: `noplots`
+defaults to True here, and `noplots=False` raises (item 5).
 """
 
 from __future__ import annotations
@@ -39,21 +50,22 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from yolov3_tpu_torch.data.dataset_yaml import check_dataset
 from yolov3_tpu_torch.data.datasets import DataLoader, DetectionDataset
 from yolov3_tpu_torch.eval import validator
 from yolov3_tpu_torch.eval.metrics import fitness
 from yolov3_tpu_torch.models.detection import DetectionModel
+from yolov3_tpu_torch.parallel import mesh as par
 from yolov3_tpu_torch.train.loss import LossConfig
 from yolov3_tpu_torch.train.optim import EarlyStopping, build_optimizer
-from yolov3_tpu_torch.train.step import make_train_step
+from yolov3_tpu_torch.train.step import init_train_state, make_train_step
 from yolov3_tpu_torch.utils.callbacks import Callbacks
 from yolov3_tpu_torch.utils.checkpoint import (load_checkpoint, load_model_from_checkpoint, restore_train_state,
                                                save_checkpoint, strip_checkpoint)
 from yolov3_tpu_torch.utils.general import (LOGGER, colorstr, increment_path, init_seeds,
-                                           labels_to_class_weights, labels_to_image_weights, select_device,
-                                           yaml_load, yaml_save)
+                                           labels_to_class_weights, labels_to_image_weights, yaml_load, yaml_save)
 from yolov3_tpu_torch.utils.loggers import Loggers
 
 HYPS = Path(__file__).resolve().parents[1] / "data" / "hyps"
@@ -61,7 +73,6 @@ HYPS = Path(__file__).resolve().parents[1] / "data" / "hyps"
 
 def _refuse(**options):
     items = {"s2d_stem": "the space-to-depth stem (ROADMAP.md queue 1 item 9)",
-             "sync_bn": "SyncBatchNorm and multi-process training (ROADMAP.md queue 1 item 8)",
              "upload_dataset": "dataset upload to W&B (ROADMAP.md queue 1 item 7)",
              "entity": "the W&B entity (ROADMAP.md queue 1 item 7)",
              "plots": "plots; pass noplots=True (ROADMAP.md queue 1 item 5)"}
@@ -128,17 +139,23 @@ def train(
     paces image logging, which is not ported, and is accepted unused.
     `half=None` means bf16 autocast on the card and float32 on the CPU.
     `noplots` defaults to True because plots are not ported; `s2d_stem`,
-    `sync_bn`, `upload_dataset`, `entity` and `noplots=False` raise
+    `upload_dataset`, `entity` and `noplots=False` raise
     NotImplementedError (see the module docstring). `resume=True`
     continues the run in `save_dir` from weights/last, full or stripped.
+    Under a process group every rank calls it (see the module docstring).
     """
-    _refuse(s2d_stem=s2d_stem, sync_bn=sync_bn, upload_dataset=upload_dataset, entity=entity, plots=not noplots)
-    device = select_device(device)
+    _refuse(s2d_stem=s2d_stem, upload_dataset=upload_dataset, entity=entity, plots=not noplots)
+    device = par.rank_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    world, main_rank = par.world_size(), par.is_main_process()
     callbacks = callbacks or Callbacks()
     t_start = time.time()
 
-    # dirs + config snapshot (reference train.py:157-172)
-    save_dir = Path(save_dir) if save_dir else increment_path(Path(project) / name, exist_ok=exist_ok)
+    # dirs + config snapshot (reference train.py:157-172); rank 0 names the run directory
+    if not save_dir and main_rank:
+        save_dir = increment_path(Path(project) / name, exist_ok=exist_ok)
+    save_dir = Path(par.broadcast_object(str(save_dir) if save_dir else None))
     wdir = save_dir / "weights"
     wdir.mkdir(parents=True, exist_ok=True)
     if isinstance(hyp, (str, Path)):
@@ -146,9 +163,13 @@ def train(
     hyp = dict(hyp or yaml_load(HYPS / "scratch-low.yaml"))
     if label_smoothing:
         hyp["label_smoothing"] = label_smoothing
-    yaml_save(save_dir / "hyp.yaml", hyp)
+    if sync_bn:
+        LOGGER.info("--sync-bn: BatchNorm stats are global-batch by construction under the process group (no-op)")
+    if main_rank:
+        yaml_save(save_dir / "hyp.yaml", hyp)
     rng, np_rng = init_seeds(seed)
-    Loggers(save_dir=save_dir).attach(callbacks)
+    if main_rank:
+        Loggers(save_dir=save_dir).attach(callbacks)
     callbacks.run("on_pretrain_routine_start")
 
     data_dict = check_dataset(data)
@@ -192,8 +213,14 @@ def train(
         batch_size=batch_size, num_cls=data_nc, max_labels=max_labels, single_cls=single_cls,
         cache_images=cache_images, rng=rng, np_rng=np_rng,
     )
+    # label buckets pad each batch's labels to its own width: every rank must pad alike, so only one buckets
     train_loader = DataLoader(train_ds, batch_size=batch_size, shuffle=not rect, max_labels=max_labels,
-                              seed=seed, drop_last=True, quad=quad, workers=workers, label_buckets=True)
+                              seed=seed, drop_last=True, quad=quad, workers=workers, label_buckets=world == 1)
+    if world > 1:
+        train_loader.shard_per_host()
+        if len(train_loader) == 0:  # every step needs every rank
+            raise ValueError(f"multi-process: {len(train_ds)} images make fewer batches of {batch_size} "
+                             f"than the {world} processes")
     steps_per_epoch = max(len(train_loader), 1)
     if multi_scale:
         # 5 fixed square sizes over [0.5, 1.5] x imgsz, one drawn every 10 batches, resized in the workers
@@ -201,7 +228,7 @@ def train(
         train_loader.set_multi_scale(buckets, seed=seed)
 
     val_loader = None
-    if not noval:
+    if not noval and main_rank:
         val_ds = DetectionDataset(
             data_dict.get("val") or data_dict["train"], imgsz=imgsz, augment=False, rect=rect_val,
             stride=stride, pad=0.5, batch_size=batch_size, num_cls=data_nc, max_labels=max_labels,
@@ -217,6 +244,8 @@ def train(
                                     np_rng=np_rng)
         if new_anchors is not None:
             _with_new_anchors(model, new_anchors)
+        if world > 1:  # every rank's loss config must hold rank 0's anchors
+            model.spec = dataclasses.replace(model.spec, anchors=par.broadcast_object(model.spec.anchors))
 
     # hyp gain scaling (reference train.py:327-329)
     hyp = dict(hyp)
@@ -227,14 +256,17 @@ def train(
 
     # optimizer + schedules + step
     freeze_layers = list(range(freeze[0])) if len(freeze) == 1 else list(freeze)
-    opt, schedules, _ = build_optimizer(optimizer, model, hyp, epochs, steps_per_epoch, batch_size, cos_lr=cos_lr,
-                                        freeze=freeze_layers)
-    step_fn = make_train_step(model, loss_cfg, opt, loss_scale=4.0 if quad else 1.0, compute_dtype=compute_dtype,
-                              remat=remat)
-    state = step_fn.state
-    if resume:
+    # batch_size is per process; the decay and accumulation scale with the total batch (JAX loop.py:236-239)
+    opt, schedules, _ = build_optimizer(optimizer, model, hyp, epochs, steps_per_epoch, batch_size * world,
+                                        cos_lr=cos_lr, freeze=freeze_layers)
+    state = None
+    if resume:  # every rank restores the same state
+        state = init_train_state(model, opt, loss_cfg)
         sd, _ = load_checkpoint(wdir / "last")
         restore_train_state(state, sd)  # a stripped `last` restores weights + EMA, the optimizer starts fresh
+    step_fn = make_train_step(model, loss_cfg, opt, state=state, loss_scale=4.0 if quad else 1.0,
+                              compute_dtype=compute_dtype, remat=remat, mesh=dist.group.WORLD)
+    state = step_fn.state
 
     if train_ds.labels:
         all_labels = np.concatenate([lb for lb in train_ds.labels if len(lb)], 0) if any(
@@ -292,36 +324,49 @@ def train(
             )
             fi = float(fitness(np.array(results).reshape(1, -1))[0])
             callbacks.run("on_val_end", epoch=epoch)
+        if world > 1:  # rank 0 validated: every rank takes its results, so the stopper stops every rank alike
+            fi, results, maps = _broadcast_results(fi, results, maps, device)
         vals = [*mloss, *[float(v) for v in (list(results) + [0.0] * 7)[:7]], lr_now, lr_now, lr_now]
         callbacks.run("on_fit_epoch_end", epoch=epoch, fitness=fi, vals=vals)
 
-        # checkpoints (reference train.py:469-489)
-        if not nosave:
+        # checkpoints (reference train.py:469-489), rank 0's
+        if not nosave and main_rank:
             meta = {"epoch": epoch, "best_fitness": max(best_fitness, fi),
                     "names": {int(k): v for k, v in names.items()}, "hyp": hyp,
                     "results": [float(x) for x in results]}
             save_checkpoint(wdir / "last", state, spec=model.spec, meta=meta)
             if fi >= best_fitness:
-                best_fitness = fi
                 save_checkpoint(wdir / "best", state, spec=model.spec, meta=meta)
             if save_period > 0 and epoch % save_period == 0:
                 save_checkpoint(wdir / f"epoch{epoch}", state, spec=model.spec, meta=meta)
             callbacks.run("on_model_save", epoch=epoch, last=str(wdir / "last"), fitness=float(fi),
                           best=bool(fi >= best_fitness), final=epoch == epochs - 1, save_period=save_period)
+        if fi >= best_fitness:
+            best_fitness = fi
 
         if stopper(epoch, fi):
             LOGGER.info(f"EarlyStopping: no improvement in {patience} epochs, stopping at epoch {epoch}")
             break
 
     # finalise (reference train.py:502-527)
-    if not nosave:
+    if not nosave and main_rank:
         for f in (wdir / "last", wdir / "best"):
             if f.exists():
                 strip_checkpoint(f)
+    par.barrier(device)  # no rank returns (and reads weights/) before rank 0 has written it
     LOGGER.info(f"\n{final_epoch - start_epoch + 1} epochs completed in {(time.time() - t_start) / 3600:.3f} hours.")
     callbacks.run("on_train_end")
     callbacks.run("teardown")
     return best_fitness, results, save_dir
+
+
+def _broadcast_results(fi, results, maps, device):
+    """Rank 0's fitness, results and per-class maps on every rank."""
+    vec = torch.tensor([fi, *[float(v) for v in results], *np.asarray(maps, np.float64)], dtype=torch.float64,
+                       device=device)
+    par.broadcast_tensors_([vec])
+    vec = vec.cpu().numpy()
+    return float(vec[0]), tuple(vec[1:1 + len(results)]), vec[1 + len(results):]
 
 
 def _resume_model(save_dir, device):

@@ -16,6 +16,16 @@ loss.
  - per-scale balance [4.0, 1.0, 0.4] (3 scales) or the P3-P7 table
  - class BCE with label smoothing, optional focal modulation
  - the returned total is scaled by the batch size
+
+Inside the train step under a process group of more than one rank
+(`statistics_synchronized()`, parallel/mesh.py) it computes this rank's
+share of the loss of the global batch, as the JAX package's sharded step
+does: the match counts, the objectness cells and the batch size are added
+over the ranks (one all-reduce of a small vector) and every term is divided
+by, or scaled by, the global count, so the ranks' shares add up to the
+global loss. The mean of per-rank losses, which DDP's gradient averaging
+gives, is another function: it differs whenever ranks hold different
+numbers of targets.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from yolov3_tpu_torch.ops.boxes import bbox_iou
+from yolov3_tpu_torch.parallel.mesh import all_reduce_sum_, statistics_synchronized, world_size
 
 
 @dataclass(frozen=True)
@@ -184,6 +195,12 @@ def compute_loss(feats, targets, mask, cfg: LossConfig, balance=None, return_per
             (autobalance).
         return_per_layer_obj: also return the raw per-layer obj losses.
 
+    When `statistics_synchronized()` (inside the train step under a process
+    group of more than one rank) the result is this rank's share of the
+    global batch's loss (the module docstring); every rank calls it with a
+    batch of the same size. The components and the per-layer obj losses are
+    shares too: their sums over the ranks are the global ones.
+
     Returns:
         (total_loss_scaled_by_bs, tensor([lbox, lobj, lcls]) detached[, obj_per_layer])
     """
@@ -199,15 +216,32 @@ def compute_loss(feats, targets, mask, cfg: LossConfig, balance=None, return_per
     cp, cn = smooth_bce(cfg.label_smoothing)
     anchors = torch.tensor(cfg.anchors, dtype=torch.float32, device=dev)  # (nl, na, 2)
 
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    # the sums of the loss's float32 pieces accumulate in float64 for a float64 head, so
+    # a sum over a batch split across ranks agrees with the one over the whole batch
+    acc = torch.promote_types(feats[0].dtype, torch.float32)
+    assigned = [assign_targets_layer(flat, flat_mask, anchors[i], pi.shape[2], pi.shape[3], cfg.anchor_t)
+                for i, pi in enumerate(feats)]
+    nl = len(feats)
+    shared = statistics_synchronized()
+    if shared:  # the global batch's counts: matched candidates and objectness cells per layer, the batch
+        counts = all_reduce_sum_(torch.cat([
+            torch.stack([t["m"].sum() for t in assigned]).to(torch.float64),
+            torch.tensor([float(pi[..., 4].numel()) for pi in feats] + [float(bs)],
+                         dtype=torch.float64).to(dev, non_blocking=True)]))
+        if int(counts[2 * nl]) != bs * world_size():  # the K3 and BatchNorm backwards assume it
+            raise ValueError(f"compute_loss: the ranks' batches differ ({int(counts[2 * nl])} images over "
+                             f"{world_size()} ranks, {bs} here); give every rank an equal batch")
+    batch = counts[2 * nl] if shared else bs  # the global batch's size
+
+    zero = torch.zeros((), dtype=acc, device=dev)
     lbox, lobj, lcls = zero, zero, zero
     obj_per_layer = []
     for i, pi in enumerate(feats):
         _, na, ny, nx, no = pi.shape
-        t = assign_targets_layer(flat, flat_mask, anchors[i], ny, nx, cfg.anchor_t)
+        t = assigned[i]
         valid = t["m"].reshape(-1)  # (K,)
         m = valid.float()
-        n_match = m.sum().clamp(min=1.0)
+        n_match = (counts[i].to(acc) if shared else m.sum()).clamp(min=1.0)
 
         # predictions at the candidate cells; f32 only after the gather
         flat_idx = ((t["b"].reshape(-1) * na + t["a"].reshape(-1)) * ny + t["gj"].reshape(-1)) * nx \
@@ -224,7 +258,7 @@ def compute_loss(feats, targets, mask, cfg: LossConfig, balance=None, return_per
         twh_safe = torch.where(valid[:, None], t["twh"].reshape(-1, 2), 1.0)
         tbox = torch.cat([t["txy"].reshape(-1, 2), twh_safe], -1)
         iou = bbox_iou(pbox, tbox, xywh=True, CIoU=True)
-        lbox = lbox + ((1.0 - iou) * m).sum() / n_match
+        lbox = lbox + ((1.0 - iou) * m).sum(dtype=acc) / n_match
 
         # objectness targets: the last candidate of a cell in flat (5, na, N)
         # order wins; scatter-max its position, then its IoU
@@ -241,7 +275,7 @@ def compute_loss(feats, targets, mask, cfg: LossConfig, balance=None, return_per
         obj_loss = bce_with_logits(obj_logits, tobj, cfg.obj_pw)
         if cfg.fl_gamma > 0:
             obj_loss = focal_modulation(obj_logits, tobj, obj_loss, cfg.fl_gamma)
-        obji = obj_loss.mean()
+        obji = obj_loss.sum(dtype=acc) / counts[nl + i].to(acc) if shared else obj_loss.mean(dtype=acc)
         obj_per_layer.append(obji.detach())
         w_i = balance[i] if balance is not None else cfg.balance[i]
         lobj = lobj + obji * w_i
@@ -255,12 +289,12 @@ def compute_loss(feats, targets, mask, cfg: LossConfig, balance=None, return_per
             cls_loss = bce_with_logits(psel[:, 5:], tc, cfg.cls_pw)
             if cfg.fl_gamma > 0:
                 cls_loss = focal_modulation(psel[:, 5:], tc, cls_loss, cfg.fl_gamma)
-            lcls = lcls + (cls_loss * m[:, None]).sum() / (n_match * cfg.nc)
+            lcls = lcls + (cls_loss * m[:, None]).sum(dtype=acc) / (n_match * cfg.nc)
 
     lbox = lbox * cfg.box
     lobj = lobj * cfg.obj
     lcls = lcls * cfg.cls
-    total = (lbox + lobj + lcls) * bs  # the reference scales by the batch size
+    total = (lbox + lobj + lcls) * batch  # the reference scales by the batch size
     comps = torch.stack([lbox, lobj, lcls]).detach()
     if return_per_layer_obj:
         return total, comps, torch.stack(obj_per_layer)

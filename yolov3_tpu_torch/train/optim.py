@@ -13,6 +13,12 @@ here it is `torch.optim` with three parameter groups:
 the schedules, clips the summed gradient at global norm 10 and steps. The
 schedules are functions of the loader step, so the k-th update reads them at
 loader step k * accumulate.
+
+Under a process group the train step sets `reduce_grads`, so the gradient is
+summed over the ranks before the clip (the norm clipped is the global
+gradient's), and the caller builds the optimizer with the total batch,
+batch_size x world size, as the JAX package does (loop.py:236-239). Every
+rank then takes the same update, and the EMA stays the same on every rank.
 """
 
 from __future__ import annotations
@@ -100,6 +106,9 @@ class ScheduledOptimizer:
         self.sets_momentum = sets_momentum
         self.updates = 0
         self.micro = 0
+        # called with the gradients on an update, before the clip: the train step
+        # under a process group sets the sum over the ranks (train/step.py)
+        self.reduce_grads = None
 
     def step(self):
         """Count one loader batch; on the accumulate-th, update. Returns the
@@ -113,6 +122,8 @@ class ScheduledOptimizer:
             group["lr"] = sch(loader_step)
             if self.sets_momentum:
                 group["momentum"] = self.schedules.momentum(loader_step)
+        if self.reduce_grads is not None:
+            self.reduce_grads([p.grad for p in self.params])
         norm = torch.nn.utils.clip_grad_norm_(self.params, GRAD_CLIP_NORM)
         self.optimizer.step()
         for p in self.params:

@@ -14,8 +14,24 @@ mode the stride-1 3x3 convs take their BatchNorm statistics from
 
 `remat`, `remat_segment` and `remat_until` checkpoint the forward in
 segments (DetectionModel.forward), as the JAX step's do; the recomputed
-forward updates no BatchNorm statistic. Not ported yet: the `mesh`
-argument (data-parallel sharding, ROADMAP.md queue 1 item 8).
+forward updates no BatchNorm statistic.
+
+`mesh=torch.distributed.group.WORLD` (the process group, one process per
+card; None without one) is the JAX step's sharded form: the step computes
+what the JAX step computes on the global batch, each rank holding its rows
+of it. The model's parameters and
+buffers and the EMA are broadcast from rank 0 when the step is built. Each
+call computes the rank's share of the global-batch loss with BatchNorm
+statistics over the global batch (`synchronized_statistics`), and on an
+update the optimizer sums the shares' gradients over the ranks, in one
+all-reduce of the flat gradients after `backward()`, before the clip: the
+gradient of the global loss, not DDP's mean of the ranks' full-loss
+gradients. DistributedDataParallel is not used: its bucket all-reduces run
+as gradients become ready, on a stream of their own, interleaved with the
+statistics' backward all-reduces on the same group, and an activation
+checkpoint's recompute reruns the forward's all-reduces inside the
+backward; one reduction after `backward()` keeps every rank's collectives in
+one order. The metrics are the global batch's (one small all-reduce).
 """
 
 from __future__ import annotations
@@ -23,9 +39,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
+from yolov3_tpu_torch.parallel.mesh import all_reduce_sum_, all_reduce_tensors_, replicate, synchronized_statistics
 from yolov3_tpu_torch.train.loss import LossConfig, compute_loss, update_balance
 from yolov3_tpu_torch.train.optim import EMA, ScheduledOptimizer
 
@@ -58,7 +76,7 @@ def init_train_state(model, optimizer, loss_cfg: LossConfig | None = None) -> Tr
 
 def make_train_step(model, loss_cfg: LossConfig, optimizer, state: TrainState | None = None,
                     ema_decay=0.9999, loss_scale=1.0, compute_dtype=torch.bfloat16,
-                    bn_stats_fn=conv3x3_bn_stats, remat=False, remat_segment=None, remat_until=None):
+                    bn_stats_fn=conv3x3_bn_stats, remat=False, remat_segment=None, remat_until=None, mesh=None):
     """Build the train step over `state` (made by `init_train_state` when not given).
 
     Returns step_fn(imgs_u8, targets, mask) -> metrics, with `step_fn.state`
@@ -81,9 +99,22 @@ def make_train_step(model, loss_cfg: LossConfig, optimizer, state: TrainState | 
     `remat_segment` layers (default 6), over the layers below `remat_until`
     (default: the whole body); the backward recomputes each segment once,
     which launches its conv+statistics kernels once more.
+    `mesh`: torch.distributed.group.WORLD, the group of
+    parallel.mesh.initialize_distributed (the module docstring); every rank
+    builds the step and calls it with its own rows, an equal number of them.
     """
+    if mesh is not None and mesh is not dist.group.WORLD:
+        raise TypeError(f"make_train_step: mesh is {mesh!r}; training runs one process per card over the "
+                        "default process group: pass torch.distributed.group.WORLD")
+    mesh = mesh is not None
     if state is None:
         state = init_train_state(model, optimizer, loss_cfg)
+    if mesh:  # every rank starts from rank 0's state
+        replicate(model)
+        replicate(state.ema.ema)
+        if state.balance is not None:
+            replicate(state.balance)
+        optimizer.reduce_grads = all_reduce_tensors_
     autobalance = loss_cfg.autobalance
     ssi = loss_cfg.strides.index(16) if (autobalance and 16 in loss_cfg.strides) else 0
     autocast = compute_dtype != torch.float32
@@ -97,16 +128,21 @@ def make_train_step(model, loss_cfg: LossConfig, optimizer, state: TrainState | 
         model.train()
         model.set_bn_stats_fn(bn_stats_fn)
         imgs = torch.as_tensor(imgs, device=device)
-        with record_function("train_step/forward"), \
-                torch.autocast(device.type, dtype=compute_dtype if autocast else None, enabled=autocast):
-            # without autocast the images are normalised in the model's own dtype, as in the JAX step
-            feats = model(normalize_images(imgs, compute_dtype if autocast else model.dtype), **remat_kw)
-        with record_function("train_step/loss"):
-            loss, comps, obj_pl = compute_loss(feats, targets, mask, loss_cfg,
-                                               balance=state.balance if autobalance else None,
-                                               return_per_layer_obj=True)
-            loss = loss * loss_scale
-        loss.backward()
+        with synchronized_statistics(mesh):
+            with record_function("train_step/forward"), \
+                    torch.autocast(device.type, dtype=compute_dtype if autocast else None, enabled=autocast):
+                # without autocast the images are normalised in the model's own dtype, as in the JAX step
+                feats = model(normalize_images(imgs, compute_dtype if autocast else model.dtype), **remat_kw)
+            with record_function("train_step/loss"):
+                loss, comps, obj_pl = compute_loss(feats, targets, mask, loss_cfg,
+                                                   balance=state.balance if autobalance else None,
+                                                   return_per_layer_obj=True)
+                loss = loss * loss_scale
+            loss.backward()
+        loss = loss.detach()
+        if mesh:  # the shares' sums: the global batch's loss, components and obj losses
+            shares = all_reduce_sum_(torch.cat([loss.reshape(1).to(comps.dtype), comps, obj_pl.to(comps.dtype)]))
+            loss, comps, obj_pl = shares[0].to(loss.dtype), shares[1:4], shares[4:].to(obj_pl.dtype)
         with record_function("train_step/optimizer"):
             grad_norm = state.optimizer.step()
         with record_function("train_step/ema"):
@@ -114,7 +150,7 @@ def make_train_step(model, loss_cfg: LossConfig, optimizer, state: TrainState | 
         state.step += 1
         if autobalance:
             state.balance = update_balance(state.balance, obj_pl, ssi)
-        metrics = {"loss": loss.detach(), "lbox": comps[0], "lobj": comps[1], "lcls": comps[2]}
+        metrics = {"loss": loss, "lbox": comps[0], "lobj": comps[1], "lcls": comps[2]}
         if grad_norm is not None:
             metrics["grad_norm"] = grad_norm
         return metrics
