@@ -105,6 +105,19 @@ Phases, each printing its result on its own line:
      validation (mAP50 within 0.005, per-shard rows equal); and
      cli/train.main over two processes for an epoch and a resume of a second
      (rank 0 alone writes checkpoints, the ranks end equal).
+ 13. a training run that learns (phase_learn, after 10): yolov3-tiny at its
+     published width (8,852,366 parameters at nc 80; nc 5 here) from seeded
+     random weights, train.loop.train with its default plots on 256
+     synthetic 320 px PNGs (RAM cache, no augmentation, batch 32) for
+     LEARN_EPOCHS epochs (K3 once a stride-1 3x3 Conv layer a step: 9),
+     then validator.run(plots=True) of the untrained model and the trained
+     `last` on the train split (K1 once a batch): trained mAP50 > 0.5 and
+     > untrained + 0.4 (tests/test_e2e.py's bars); the loop's and the
+     loader's img/s, the device busy share of one epoch's loop, which of
+     matplotlib / seaborn / pandas the host has and the plots written; then
+     on full-width yolov3 at 640: check_bf16's deltas, profile_layers
+     (per-layer ms by CUDA events, GFLOPs beside the FLOP counter's) and
+     model_memory_bytes at batch 8.
 With `--kernel-times [ROOT]` it only times K3, K1 and K2 of the package under
 ROOT (default: beside this file) at the main paths' shapes and stops: run
 once per tree, parent, change, change, parent, to compare two trees on one
@@ -1359,6 +1372,15 @@ K3_SHAPES = (
     ("tiny 40x40 384->256", torch.bfloat16, 2, 40, 40, 384, 256),
     ("tiny 20x20 256->512", torch.bfloat16, 2, 20, 20, 256, 512),
     ("tiny 20x20 512->1024", torch.bfloat16, 2, 20, 20, 512, 1024),
+    # phase_learn's: yolov3-tiny at 320 px, batch 32 (LEARN_IMGSZ, LEARN_BS)
+    ("learn stem 320x320 3->16", torch.bfloat16, 32, 320, 320, 3, 16),
+    ("learn 160x160 16->32", torch.bfloat16, 32, 160, 160, 16, 32),
+    ("learn 80x80 32->64", torch.bfloat16, 32, 80, 80, 32, 64),
+    ("learn 40x40 64->128", torch.bfloat16, 32, 40, 40, 64, 128),
+    ("learn 20x20 128->256", torch.bfloat16, 32, 20, 20, 128, 256),
+    ("learn 20x20 384->256", torch.bfloat16, 32, 20, 20, 384, 256),
+    ("learn 10x10 256->512", torch.bfloat16, 32, 10, 10, 256, 512),
+    ("learn 10x10 512->1024", torch.bfloat16, 32, 10, 10, 512, 1024),
     ("odd 13x19 64->40", torch.bfloat16, 8, 13, 19, 64, 40),
     ("odd 13x19 96->72", torch.bfloat16, 8, 13, 19, 96, 72),
     ("odd 13x19 48->100", torch.bfloat16, 8, 13, 19, 48, 100),
@@ -1833,7 +1855,8 @@ class EpochClock:
             elif hook == "on_train_batch_start":
                 batches.append(when)
             elif hook == "on_model_save":
-                s, e, v = t["on_train_epoch_start"], t["on_train_epoch_end"], t["on_val_end"]
+                s, e = t["on_train_epoch_start"], t["on_train_epoch_end"]
+                v = max(t.get("on_val_end", e), e)  # noval: no validation time
                 out.append((e - s, e - batches[1], v - e, when - v, when - s))
         return out
 
@@ -2008,6 +2031,215 @@ def phase_trainer():
         return launches, out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --- a training run that learns ---------------------------------------------
+
+LEARN_CFG = "yolov3-tiny"
+LEARN_PARAMS = 8852366  # yolov3-tiny at its published width, nc 80
+LEARN_IMAGES = 256  # the synthetic train split, also the split the bars are read on: one epoch is 256 images
+LEARN_IMGSZ = 320
+LEARN_BS = 32  # nbs 64: an optimizer update every 2 steps
+LEARN_WORKERS = 8
+LEARN_EPOCHS = 40  # 320 steps, the first 100 of them warm-up (train/optim.py's least warm-up)
+LEARN_PROFILED_EPOCH = 2  # the epoch whose train loop runs under torch.profiler
+# scratch-low without augmentation (the images are learned as they are), lr0 0.02, momentum 0.9, no weight
+# decay, lrf 0.1: in a tuning run on the card it reached mAP50 0.864 where scratch-low's lr reached 0.810
+LEARN_HYP_OVERRIDES = {
+    "hsv_h": 0.0, "hsv_s": 0.0, "hsv_v": 0.0, "degrees": 0.0, "translate": 0.0, "scale": 0.0, "shear": 0.0,
+    "perspective": 0.0, "flipud": 0.0, "fliplr": 0.0, "mosaic": 0.0, "mixup": 0.0, "copy_paste": 0.0,
+    "lr0": 0.02, "momentum": 0.9, "weight_decay": 0.0, "lrf": 0.1}
+LEARN_MAP50 = 0.5  # tests/test_e2e.py:141-142: trained mAP50 > 0.5 and > untrained + 0.4 on the train split
+LEARN_MARGIN = 0.4
+PLOT_PACKAGES = ("matplotlib", "seaborn", "pandas")
+
+
+class EpochProfile:
+    """torch.profiler over the train loop of one epoch of `train()`, started
+    and stopped by its callbacks; the loop runs inside the range `RANGE`."""
+
+    RANGE = "learn/epoch_train_loop"
+
+    def __init__(self, callbacks, epoch):
+        self.epoch, self.seen, self.prof, self.range = epoch, -1, None, None
+        callbacks.register_action("on_train_epoch_start", "profile", lambda **_: self.start())
+        callbacks.register_action("on_train_epoch_end", "profile", lambda **_: self.stop())
+
+    def start(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.seen += 1
+        if self.seen == self.epoch:
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.range = torch.profiler.record_function(self.RANGE)
+            self.range.__enter__()
+
+    def stop(self):
+        if self.range is not None:
+            self.range.__exit__(None, None, None)
+            self.prof.__exit__(None, None, None)
+            self.range = None
+
+
+def k3_layers(spec):
+    """The spec's stride-1 3x3 Conv layers (each with its BatchNorm): K3 launches a train step."""
+    return sum(ls.op == "Conv" and ls.args[1] == 3 and (len(ls.args) < 3 or ls.args[2] == 1) for ls in spec.layers)
+
+
+def phase_learn(gpu, epochs=LEARN_EPOCHS, n_images=LEARN_IMAGES, imgsz=LEARN_IMGSZ, bs=LEARN_BS, cfg=LEARN_CFG,
+                hyp_overrides=None, noval=True, device=None):
+    """Train yolov3-tiny at its published width (nc 5) from seeded random
+    weights on the synthetic shapes written as PNGs, through train.loop.train
+    with its default plots (K3 in every step), then validate the trained
+    `last` and the untrained model on the train split through
+    validator.run(plots=True) (K1 once a batch at K = 30000) and hold JAX's
+    bars: trained mAP50 > LEARN_MAP50 and > untrained + LEARN_MARGIN.
+    Measures the loop's and the loader's img/s over epochs of n_images, the
+    device busy share of one epoch's loop, and which plot files the card's
+    host could write. Then check_bf16, profile_layers and model_memory_bytes
+    on full-width yolov3 at 640. Returns (launches, measurements)."""
+    import importlib.util
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from yolov3_tpu_torch.data import synthetic
+    from yolov3_tpu_torch.data.datasets import DataLoader, DetectionDataset
+    from yolov3_tpu_torch.eval import validator
+    from yolov3_tpu_torch.models.detection import DetectionModel
+    from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
+    from yolov3_tpu_torch.train.loop import HYPS, train
+    from yolov3_tpu_torch.utils.callbacks import Callbacks
+    from yolov3_tpu_torch.utils.checkpoint import load_model_from_checkpoint
+    from yolov3_tpu_torch.utils.general import yaml_load
+    from yolov3_tpu_torch.utils.loggers import read_results
+
+    t_phase = time.perf_counter()
+    check(DetectionModel.from_config(cfg, device=device).num_params() == LEARN_PARAMS,
+          f"{cfg} at nc 80 does not have {LEARN_PARAMS} parameters")
+    hyp = {**yaml_load(HYPS / "scratch-low.yaml"), **LEARN_HYP_OVERRIDES, **(hyp_overrides or {})}
+    packages = {p: importlib.util.find_spec(p) is not None for p in PLOT_PACKAGES}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_learn_"))
+    try:
+        data = synthetic.generate(tmp / "shapes", n_images=n_images, imgsz=imgsz, seed=1)  # val: the train split
+        nc = len(data["names"])
+        # the loader alone: one epoch of the train split as train() loads it (RAM cache, no augmentation)
+        t0 = time.perf_counter()
+        ds = DetectionDataset(str(tmp / "shapes/images/train"), imgsz=imgsz, augment=True, hyp=hyp, batch_size=bs,
+                              num_cls=nc, cache_images="ram")
+        cache_s = time.perf_counter() - t0
+        loader = DataLoader(ds, batch_size=bs, shuffle=True, drop_last=True, workers=LEARN_WORKERS,
+                            label_buckets=True)
+        t0 = time.perf_counter()
+        arrivals = [time.perf_counter() for _ in loader]
+        loader_img_s = len(arrivals) * bs / (arrivals[-1] - t0)
+        del ds, loader
+
+        run = tmp / "run"
+        cb = Callbacks()
+        clock = EpochClock(cb)
+        prof = EpochProfile(cb, LEARN_PROFILED_EPOCH)
+        steps = n_images // bs
+        # --- the training run: every launch from here to the count read is the path's own
+        conv3x3_bn_stats.launches = greedy_nms.launches = 0
+        t0 = time.perf_counter()
+        train(data, cfg=cfg, hyp=hyp, epochs=epochs, batch_size=bs, imgsz=imgsz, noval=noval, noautoanchor=True,
+              cache_images="ram", workers=LEARN_WORKERS, save_dir=run, callbacks=cb, seed=0, device=device)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {"conv3x3_bn_stats": conv3x3_bn_stats.launches, "greedy_nms": greedy_nms.launches}
+        # --- end of the training run
+        convs = k3_layers(DetectionModel.from_config(cfg, device="cpu").spec)
+        check(launches["conv3x3_bn_stats"] == convs * steps * epochs,
+              f"K3 launched {launches['conv3x3_bn_stats']} times in {steps * epochs} steps of {convs} layers")
+        busy, n_kernels = busy_share(prof.prof, EpochProfile.RANGE)
+        rows = read_results(run / "results.csv")
+        per_epoch = clock.epochs()
+        unprofiled = [e for i, e in enumerate(per_epoch) if i != LEARN_PROFILED_EPOCH]
+        loop_img_s = [n_images / e[0] for e in unprofiled]
+        steady_img_s = [(steps - 1) * bs / e[1] for e in unprofiled]  # from the second batch: no loader start-up
+        print(f"learn: {cfg} nc {nc}, {epochs} epochs of {steps} steps at batch {bs}, {imgsz} px, {n_images} "
+              f"images in {train_s:.1f} s; K3 {launches['conv3x3_bn_stats']} launches "
+              f"({launches['conv3x3_bn_stats'] / (steps * epochs):g} a step, {convs} stride-1 3x3 Conv layers); "
+              f"loop img/s median {np.median(loop_img_s):.1f} (min {min(loop_img_s):.1f}, max "
+              f"{max(loop_img_s):.1f}), {np.median(steady_img_s):.1f} from the second batch; checkpoints median "
+              f"{np.median([e[3] for e in unprofiled]):.3f} s an epoch; the loader alone {loader_img_s:.1f} img/s "
+              f"over {len(arrivals)} batches "
+              f"(RAM cache built in {cache_s:.2f} s); device busy {busy:.1%} of epoch {LEARN_PROFILED_EPOCH}'s loop "
+              f"({n_kernels} kernels); per-epoch wall s " + " ".join(f"{e[4]:.2f}" for e in per_epoch), flush=True)
+        if not noval:
+            print("learn: per-epoch EMA mAP50 on the train split " + " ".join(
+                f"{r['metrics/mAP_0.5']:.3f}" for r in rows), flush=True)
+
+        maps, val_launches = {}, {}
+        val_batches = -(-n_images // bs)
+        for label, model in (("untrained", DetectionModel.from_config(cfg, nc=nc, seed=0, device=device)),
+                             ("trained", load_model_from_checkpoint(run / "weights" / "last", device=device))):
+            greedy_nms.launches = 0
+            t0 = time.perf_counter()
+            results, _, _ = validator.run(data, model=model, batch_size=bs, imgsz=imgsz, task="train", plots=True,
+                                          save_dir=run / f"val_{label}", workers=LEARN_WORKERS)
+            val_s = time.perf_counter() - t0
+            maps[label], val_launches[label] = float(results[2]), greedy_nms.launches
+            print(f"learn val {label}: mAP50 {results[2]:.4f} mAP50-95 {results[3]:.4f} P {results[0]:.4f} "
+                  f"R {results[1]:.4f} in {val_s:.2f} s; K1 {greedy_nms.launches} launches for {val_batches} "
+                  f"batches", flush=True)
+            check(greedy_nms.launches == val_batches, f"K1 launched {greedy_nms.launches} times in {label} val")
+        check(maps["trained"] > LEARN_MAP50 and maps["trained"] > maps["untrained"] + LEARN_MARGIN,
+              f"trained mAP50 {maps['trained']:.4f} against untrained {maps['untrained']:.4f}: below the bars "
+              f"(> {LEARN_MAP50}, > untrained + {LEARN_MARGIN})")
+
+        written = sorted(str(f.relative_to(run)) for f in run.rglob("*.png"))
+        drawn = {"labels.png", "results.png", "val_trained/PR_curve.png", "val_trained/confusion_matrix.png"}
+        numpy_only = {"train_batch0.png", "train_batch2.png", "val_trained/val_batch0_pred.png"}
+        check(numpy_only <= set(written), f"mosaics missing: {sorted(numpy_only - set(written))}")
+        if packages["matplotlib"]:
+            check(drawn <= set(written), f"matplotlib is here, but {sorted(drawn - set(written))} are missing")
+        else:
+            check(not drawn & set(written), f"no matplotlib, yet {sorted(drawn & set(written))} were written")
+        print(f"learn plots: packages on this host {packages}; {len(written)} PNGs written: {written}", flush=True)
+
+        full = learn_yolov3_tools(device)
+        out = dict(cfg=cfg, nc=nc, epochs=epochs, steps_per_epoch=steps, batch=bs, imgsz=imgsz, images=n_images,
+                   train_s=train_s, loop_img_s=loop_img_s, loop_img_s_from_second_batch=steady_img_s,
+                   checkpoint_s=[e[3] for e in per_epoch], loader_img_s=loader_img_s, cache_s=cache_s,
+                   device_busy=busy, busy_kernels=n_kernels, epoch_wall_s=[e[4] for e in per_epoch],
+                   map50=maps, k3_per_step=launches["conv3x3_bn_stats"] / (steps * epochs), k3_layers=convs,
+                   k1_per_val_batch={k: v / val_batches for k, v in val_launches.items()}, plot_packages=packages,
+                   plots_written=written, losses=[[r[k] for k in ("train/box_loss", "train/obj_loss",
+                                                                  "train/cls_loss")] for r in rows], **full)
+        out["phase_s"] = time.perf_counter() - t_phase
+        print(f"learn: phase {out['phase_s']:.1f} s on {gpu}", flush=True)
+        return {"conv3x3_bn_stats": launches["conv3x3_bn_stats"], "greedy_nms": sum(val_launches.values()),
+                "greedy_nms_val_batches": 2 * val_batches}, out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def learn_yolov3_tools(device=None, imgsz=640):
+    """check_bf16, profile_layers and model_memory_bytes on full-width yolov3 at `imgsz`."""
+    from yolov3_tpu_torch.models.detection import DetectionModel
+    from yolov3_tpu_torch.utils import checks, profiling
+
+    model = DetectionModel.from_config("yolov3", seed=0, device=device)
+    db, dc = checks.bf16_deltas(model, imgsz)
+    ok = checks.check_bf16(model, imgsz)
+    rows = profiling.profile_layers(model, imgsz=imgsz, batch=1, reps=10)
+    layer_gflops, counted = sum(r["gflops"] for r in rows), profiling.model_flops(model, imgsz) / 1e9
+    check(abs(layer_gflops - counted) <= 1e-6 * counted, f"layer GFLOPs {layer_gflops} against {counted}")
+    check(sum(r["params"] for r in rows) == model.num_params(), "profile_layers' parameters")
+    mem = profiling.model_memory_bytes(model, 8, imgsz)
+    top = sorted(rows, key=lambda r: -r["ms"])[:5]
+    print(f"learn yolov3@{imgsz}: check_bf16 {'passed' if ok else 'FAILED'} (box delta {db:.5f} of imgsz, conf "
+          f"delta {dc:.5f}); profile_layers {len(rows)} layers {sum(r['ms'] for r in rows):.3f} ms by CUDA events, "
+          f"{layer_gflops:.2f} GFLOPs (FLOP counter over the model {counted:.2f}); slowest "
+          + ", ".join(f"{r['i']} {r['op']} {r['ms']:.3f} ms" for r in top)
+          + f"; peak memory of an eval forward at batch 8 {mem / 2**30:.3f} GiB", flush=True)
+    return dict(yolov3_check_bf16=ok, yolov3_bf16_box_delta=db, yolov3_bf16_conf_delta=dc,
+                yolov3_layer_ms=[r["ms"] for r in rows], yolov3_layer_gflops=[r["gflops"] for r in rows],
+                yolov3_gflops=counted, yolov3_eval_peak_bytes_b8=mem)
 
 
 # --- detection from JPEGs on disk --------------------------------------------
@@ -2973,6 +3205,7 @@ def main(argv=()):
     launches["conv3x3_bn_stats"], train = phase_train(rng, DetectionModel.from_config("yolov3", seed=0))
     remat = phase_remat()
     trainer_launches, trainer = phase_trainer()
+    learn_launches, learn = phase_learn(gpu)
     zoo_launches, zoo = phase_zoo(rng)
 
     serving = nms_rows["serving"]
@@ -2994,7 +3227,9 @@ def main(argv=()):
              detect_pt2_launches=detect["pt2_launches"],
              parallel_serve_launches=parallel_launches["greedy_nms_serve"],
              parallel_val_launches=parallel_launches["greedy_nms_val"],
-             parallel_trainer_launches_rank0=parallel_launches["greedy_nms_trainer"]),
+             parallel_trainer_launches_rank0=parallel_launches["greedy_nms_trainer"],
+             learn_val_launches=learn_launches["greedy_nms"],
+             learn_val_launches_per_batch=learn_launches["greedy_nms"] / learn_launches["greedy_nms_val_batches"]),
         dict(name="masked_scores", route="cuda", source="yolov3_tpu_torch/csrc/score.cu",
              replaces="yolov3_tpu/ops/score_pallas.py:43", launches=launches["masked_scores"],
              max_abs_err=score["max_abs_err"], ms=score["ms"], plain_ms=score["plain_ms"],
@@ -3013,13 +3248,14 @@ def main(argv=()):
              zoo_launches={k: v["conv3x3_bn_stats"] for k, v in zoo_launches.items()},
              parallel_world1_launches=parallel_launches["conv3x3_bn_stats_world1"],
              parallel_launches_per_rank_step=parallel_launches["conv3x3_bn_stats_per_rank_step"],
-             parallel_trainer_launches_per_rank=parallel_launches["conv3x3_bn_stats_trainer"]),
+             parallel_trainer_launches_per_rank=parallel_launches["conv3x3_bn_stats_trainer"],
+             learn_launches=learn_launches["conv3x3_bn_stats"], learn_launches_per_step=learn["k3_per_step"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"nms_shapes": nms_rows, "conv_bn_shapes": conv_rows, "main_path": e2e, "http": http,
                       "fast_false": fast_false, "val": val, "merge": merge, "save_hybrid": hybrid, "train": train,
                       "remat": remat, "trainer": trainer, "jpeg": jpeg, "detect": detect, "zoo": zoo,
-                      "export": exported, "parallel": parallel}))
+                      "export": exported, "parallel": parallel, "learn": learn}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

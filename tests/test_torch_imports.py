@@ -1,8 +1,9 @@
 """Import hygiene of the PyTorch port: it never imports JAX, flax, optax or
 the JAX package, nor OpenCV or Pillow at module level (JPEG, PNG and BMP
 are decoded in-tree; other formats and video import one of them inside the
-function that reads them), and its entry points refuse to drop to the CPU
-on their own."""
+function that reads them), nor matplotlib, seaborn or pandas (the plots
+import them inside the function that draws), and its entry points refuse to
+drop to the CPU on their own."""
 
 import ast
 import subprocess
@@ -26,6 +27,8 @@ DETECT_MODULES = ("data/loaders.py", "utils/plots.py", "models/loading.py", "mod
 EXPORT_MODULES = ("export.py", "models/backend.py", "models/onnx_native.py", "models/onnx_runtime.py",
                   "cli/benchmarks.py")
 PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py")
+UTILITY_MODULES = ("utils/env.py", "utils/checks.py", "utils/profiling.py", "utils/plots.py")
+PLOT_LIBRARIES = {"matplotlib", "seaborn", "pandas"}  # optional: imported inside the functions that draw
 
 
 def imported_roots(path):
@@ -51,6 +54,29 @@ def test_no_module_level_image_library_imports(path):
     roots = {a.name.split(".")[0] for n in top if isinstance(n, ast.Import) for a in n.names}
     roots |= {n.module.split(".")[0] for n in top if isinstance(n, ast.ImportFrom) and n.level == 0}
     assert not roots & IMAGE_LIBRARIES, f"{path.relative_to(ROOT)} imports {roots & IMAGE_LIBRARIES} at module level"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_level_plot_library_imports(path):
+    tree = ast.parse(path.read_text(), str(path))
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    roots = {a.name.split(".")[0] for n in top if isinstance(n, ast.Import) for a in n.names}
+    roots |= {n.module.split(".")[0] for n in top if isinstance(n, ast.ImportFrom) and n.level == 0}
+    assert not roots & PLOT_LIBRARIES, f"{path.relative_to(ROOT)} imports {roots & PLOT_LIBRARIES} at module level"
+
+
+def test_walk_covers_the_utility_modules():
+    walked = {str(p.relative_to(ROOT / "yolov3_tpu_torch")) for p in PORT_FILES[:-1]}
+    assert set(UTILITY_MODULES) <= walked
+
+
+def test_utility_import_loads_no_jax_cv2_pil_or_plot_library():
+    modules = ", ".join("yolov3_tpu_torch." + m[:-3].replace("/", ".") for m in UTILITY_MODULES)
+    _assert_import_loads_no_jax(modules)
+    code = (f"import sys, {modules}; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('cv2', 'PIL', 'matplotlib', 'seaborn', "
+            "'pandas')); assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
 def test_walk_covers_the_train_modules():

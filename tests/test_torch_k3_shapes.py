@@ -20,7 +20,7 @@ MODELS = {"yolov3": "yolov3", "yolov3-spp": "yolov3-spp", "yolov3-tiny": "yolov3
 TIMED = ("yolov3", "yolov5s", "yolov5s-transformer")  # batch 8, as the train phases run them
 
 
-def stats_route_shapes(name):
+def stats_route_shapes(name, imgsz=IMGSZ):
     """(H, W, Cin, Cout) of every conv that takes the conv+statistics route in
     train mode, in forward order: a forward of shapes only, on the meta device."""
     with torch.device("meta"):
@@ -35,7 +35,7 @@ def stats_route_shapes(name):
     for m in model.modules():
         if getattr(m, "stats_route", False):
             m.register_forward_pre_hook(record)
-    model(torch.empty((1, IMGSZ, IMGSZ, 3), device="meta"), raw=True)
+    model(torch.empty((1, imgsz, imgsz, 3), device="meta"), raw=True)
     return shapes
 
 
@@ -89,3 +89,12 @@ def test_timed_rows_and_main_shape():
     assert len(labels) == len(set(labels))
     assert chip_smoke.K3_MAIN_SHAPE in labels
     assert "320x320 32->64" in labels
+
+
+def test_learn_phase_shapes_are_chip_smoke_rows():
+    """phase_learn trains yolov3-tiny at LEARN_IMGSZ, batch LEARN_BS: each of its K3 shapes is a row at that
+    batch, and its launches a step are the spec's stride-1 3x3 Conv layers, as the phase asserts."""
+    shapes = stats_route_shapes("yolov3-tiny", chip_smoke.LEARN_IMGSZ)
+    assert len(shapes) == chip_smoke.k3_layers(parse_spec("yolov3-tiny")) == 9
+    missing = set(shapes) - smoke_rows(batch=chip_smoke.LEARN_BS)
+    assert not missing, f"phase_learn's shapes without a row in chip_smoke.K3_SHAPES: {sorted(missing)}"

@@ -121,11 +121,11 @@ def test_validator_builds_its_loader_like_jax(runs):
     np.testing.assert_allclose(got_maps, want_maps, atol=0.005)
 
 
+# plots are ported: noplots=False is the default (tests/test_torch_plot_hooks.py)
 @pytest.mark.parametrize("option,item", [("s2d_stem", "item 9"),
-                                         ("upload_dataset", "item 7"), ("entity", "item 7"),
-                                         ("noplots", "item 5")])
+                                         ("upload_dataset", "item 7"), ("entity", "item 7")])
 def test_unported_options_raise(option, item):
-    value = False if option == "noplots" else ("team" if option == "entity" else True)
+    value = "team" if option == "entity" else True
     with pytest.raises(NotImplementedError, match=item):
         train("unused.yaml", device="cpu", **{option: value})
 

@@ -14,8 +14,11 @@
    conf atol 1e-3, losses rtol 2e-3.
    `save_hybrid=True` (labels injected before the host NMS) is held the
    same way.
-3. Every argument of the JAX `run` that the port does not take yet raises
-   NotImplementedError.
+   `plots=True` writes the JAX validator's files (PNG for JPEG) from the
+   same plot inputs: the mosaics' images and labels equal, the prediction
+   mosaics' boxes within the NMS box bar, the PR / F1 / P / R curves and
+   the confusion matrix within the mAP bar.
+3. Arguments that raise: what a call without data or cards cannot do.
 """
 
 import json
@@ -441,13 +444,61 @@ def test_val_save_hybrid_matches_jax(val_runs):
     assert sum((g[:, 4] == 1.0).sum() for g in got_preds.values()) > sum((g[:, 4] == 1.0).sum() for g in plain.values())
 
 
+def test_val_plots_match_jax(val_runs, tmp_path, monkeypatch):
+    """plots=True: the same files as the JAX validator (PNG for JPEG), drawn from
+    the same inputs. The mosaics' images, labels and masks are equal; the
+    prediction mosaics' rows within the NMS box bar (0.1 px, as a share of
+    the frame); the curves, AP and the confusion matrix within the mAP bar."""
+    from yolov3_tpu.utils import plots as jax_plots
+
+    calls = {"jax": [], "port": []}
+
+    def recording(label, name, fn):
+        def record(*args, **kwargs):
+            calls[label].append((name, args, kwargs))
+            return fn(*args, **kwargs)
+        return record
+
+    for name in ("plot_images", "plot_pr_curve", "plot_mc_curve", "plot_confusion_matrix"):
+        monkeypatch.setattr(jax_plots, name, recording("jax", name, getattr(jax_plots, name)))
+        monkeypatch.setattr(validator, name, recording("port", name, getattr(validator, name)))
+    files = {}
+    for label, run, m in (("jax", jax_validator.run, val_runs["jax_model"]),
+                          ("port", validator.run, val_runs["model"])):
+        (tmp_path / label).mkdir()
+        run(val_runs["data"], model=m, batch_size=2, imgsz=IMGSZ, dataloader=val_runs["batches"], plots=True,
+            save_dir=tmp_path / label)
+        files[label] = sorted(p.name for p in (tmp_path / label).iterdir())
+    assert files["port"] == sorted(f.replace(".jpg", ".png") for f in files["jax"])
+    assert {"PR_curve.png", "F1_curve.png", "confusion_matrix.png", "val_batch2_pred.png"} <= set(files["port"])
+    got, want = calls["port"], calls["jax"]
+    assert [c[0] for c in got] == [c[0] for c in want]
+    for (name, g, gk), (_, w, wk) in zip(got, want):
+        if name == "plot_images":
+            assert Path(gk["fname"]).name == Path(wk["fname"]).name.replace(".jpg", ".png")
+            np.testing.assert_array_equal(g[0], w[0])
+            np.testing.assert_array_equal(gk["masks"], wk["masks"])
+            assert gk["names"] == wk["names"]
+            tol = 0.1 / min(g[0].shape[1:3]) if "pred" in Path(gk["fname"]).name else 0.0
+            np.testing.assert_allclose(g[1], w[1], rtol=0, atol=tol + 1e-7)
+        elif name == "plot_confusion_matrix":
+            np.testing.assert_array_equal(g[0], w[0])
+            assert list(g[1]) == list(w[1])
+        else:  # the curves: px, the curves (and ap for PR), the file, the class names
+            np.testing.assert_array_equal(g[0], w[0])
+            for a, b in zip(g[1:-2], w[1:-2]):
+                np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=0, atol=0.005, err_msg=name)
+            assert Path(g[-2]).name == Path(w[-2]).name and list(g[-1]) == list(w[-1]) and gk == wk
+
+
 # --- 3. what is not ported yet raises -----------------------------------------
 
 
 @pytest.mark.parametrize("kwargs,error,match", [
     # augment (TTA) is ported (tests/test_torch_tta.py): accepted, the call goes on to need `data`
     (dict(augment=True, dataloader=None), ValueError, "needs `data`"),
-    (dict(plots=True), NotImplementedError, "item 5"),
+    # plots are ported (test_val_plots_match_jax): accepted, the call goes on to need `data`
+    (dict(plots=True, dataloader=None), ValueError, "needs `data`"),
     # sharded=True shards over every local card, and the CPU has none (a Mesh of CPU devices
     # shards there: tests/test_torch_sharded.py)
     (dict(sharded=True), RuntimeError, "no CUDA device"),

@@ -18,7 +18,9 @@ bf16) -> decode -> `batched_nms` (the NMS kernel on the card, max_nms
 8192) -> boxes scaled to the image -> Annotator -> the annotated image
 (`<stem>.png`), labels (`labels/<stem>.txt`) and crops
 (`crops/<class>/<stem>.png`). The JAX package writes `<name>.jpg`; the port
-writes PNG until it has a JPEG encoder (ROADMAP.md queue 1).
+writes PNG until it has a JPEG encoder (ROADMAP.md queue 1). `--visualize`
+writes each layer's feature maps as `<stem>/stage{i}_{op}_features.png`
+(utils/plots.feature_visualization; the reference's names).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from yolov3_tpu_torch.models.backend import EXPORTED, MultiBackend
 from yolov3_tpu_torch.ops.boxes import scale_boxes, xyxy2xywh
 from yolov3_tpu_torch.ops.nms import batched_nms
 from yolov3_tpu_torch.utils.general import LOGGER, Profile, check_img_size, increment_path, print_args
-from yolov3_tpu_torch.utils.plots import Annotator, colors, save_one_box
+from yolov3_tpu_torch.utils.plots import Annotator, colors, feature_visualization, save_one_box
 
 DEFAULT_SOURCE = str(Path(__file__).resolve().parents[1] / "data" / "images")
 
@@ -78,12 +80,10 @@ def run(
     """Run detection over a source; returns the save_dir. device=None means
     "cuda" (and raises without one). `run.speed_ms` holds the last run's
     pre / inference / NMS / post milliseconds per image."""
-    from yolov3_tpu_torch.models.detection import optimize_for_inference
+    from yolov3_tpu_torch.models.detection import DetectionModel, optimize_for_inference
     from yolov3_tpu_torch.models.ensemble import attempt_load
     from yolov3_tpu_torch.models.loading import load_weights
 
-    if visualize:
-        raise NotImplementedError("--visualize (feature-map plots) is not ported yet (ROADMAP.md queue 1 item 5)")
     source = str(source)
     save_img = not nosave and not source.endswith(".txt")
     is_file = Path(source).suffix[1:].lower() in (IMG_FORMATS + VID_FORMATS)
@@ -112,6 +112,9 @@ def run(
     else:
         # half=None: bf16 on the card, float32 on the CPU; --half forces bf16
         model = optimize_for_inference(load_weights(weights, device=device), bf16=half)
+    if visualize and not isinstance(model, DetectionModel):
+        raise NotImplementedError("--visualize needs a single checkpoint, reference .pt or cfg, not an ensemble "
+                                  "or an exported artifact")
     dev = model.device
     stride = int(model.stride)
     names = model.names
@@ -124,6 +127,22 @@ def run(
             return model(imgs_u8)
         x = torch.as_tensor(imgs_u8).to(dev).float() / 255.0
         return model.predict(x, augment=augment)
+
+    @torch.inference_mode()
+    def visualize_features(imgs_u8, save_to):
+        """--visualize: a grid of each layer's feature maps, stage{i}_{op}_features.png (reference plots.py:30-57)."""
+        outs = {}
+        hooks = [m.register_forward_hook(lambda _m, _x, y, i=i: outs.__setitem__(i, y))
+                 for i, m in enumerate(model.model)]
+        try:
+            infer(imgs_u8)
+        finally:
+            for h in hooks:
+                h.remove()
+        save_to.mkdir(parents=True, exist_ok=True)
+        for ls in model.spec.layers:
+            if isinstance(outs[ls.i], torch.Tensor):
+                feature_visualization(outs[ls.i], ls.op, ls.i, save_dir=save_to)
 
     @torch.inference_mode()
     def nms(pred):
@@ -152,6 +171,8 @@ def run(
                 im = im[None]
         with dt[1]:
             pred = infer(im)
+        if visualize:
+            visualize_features(im, save_dir / Path(path[0] if webcam else path).stem)
         with dt[2]:
             dets, n_valid = nms(pred)
             n_valid = n_valid.cpu().numpy()

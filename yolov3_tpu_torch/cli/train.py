@@ -13,8 +13,9 @@ with its rank (train.loop.train; parallel/mesh.py):
 `--batch-size` is per process; BatchNorm statistics are the global batch's,
 so `--sync-bn` is accepted and changes nothing. Not ported, and raising:
 `--entity` / `--upload_dataset` and a Comet resume (ROADMAP.md queue 1 item
-7), `--s2d-stem` (item 9). Plots are not ported (item 5): the run trains
-without them, as with `--noplots`.
+7), `--s2d-stem` (item 9). The run writes its plots unless `--noplots`
+(utils/plots.py; each needs matplotlib, and is skipped with one log line
+on a host without it).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-from yolov3_tpu_torch.utils.general import LOGGER, check_yaml, print_args
+from yolov3_tpu_torch.utils.general import check_yaml, get_latest_run, print_args
 
 
 def parse_opt(known=False, argv=None):
@@ -98,8 +99,6 @@ def _main(opt, device):
     from yolov3_tpu_torch.utils.general import yaml_load
 
     print_args(vars(opt))
-    if not opt.noplots:
-        LOGGER.warning("plots are not ported yet (ROADMAP.md queue 1 item 5): training as with --noplots")
     save_dir = None
     if isinstance(opt.resume, str) and opt.resume.startswith("comet://"):
         raise NotImplementedError("a Comet resume is not ported yet (ROADMAP.md queue 1 item 7)")
@@ -109,12 +108,9 @@ def _main(opt, device):
             if save_dir.parent.name == "weights":  # the checkpoint path itself: its run dir
                 save_dir = save_dir.parent.parent
         else:
-            import glob
-            import os
-
-            items = glob.glob(f"{opt.project}/**/last*", recursive=True)
-            assert items, f"no checkpoint found under {opt.project} to resume from"
-            save_dir = Path(max(items, key=os.path.getctime)).parent.parent  # .../exp/weights/last -> .../exp
+            last = get_latest_run(opt.project)
+            assert last, f"no checkpoint found under {opt.project} to resume from"
+            save_dir = Path(last).parent.parent  # .../exp/weights/last -> .../exp
 
     if opt.evolve:  # genetic hyper-parameter search (reference train.py:689-798)
         from yolov3_tpu_torch.train.evolve import evolve
@@ -164,7 +160,7 @@ def _main(opt, device):
         remat=opt.remat,
         s2d_stem=opt.s2d_stem,
         rect=opt.rect,
-        noplots=True,
+        noplots=opt.noplots,
         label_smoothing=opt.label_smoothing,
         sync_bn=opt.sync_bn,
         entity=opt.entity,

@@ -4,9 +4,11 @@
 
 Tasks: val / test (mAP), speed (conf 0.25, iou 0.45), study (mAP against
 imgsz 256..1536, saved to study_*.txt). Several `--weights` make a
-concat-NMS Ensemble. `--device` unset means the card; `--device cpu` the
-CPU. `--sharded` validates data-parallel over every local card (a replica
-of the model on each, each batch's rows split over them; eval.validator.run).
+concat-NMS Ensemble. val / test write the val plots (batch mosaics, PR / F1 /
+P / R curves, confusion matrix; utils/plots.py) into the run directory.
+`--device` unset means the card; `--device cpu` the CPU. `--sharded`
+validates data-parallel over every local card (a replica of the model on
+each, each batch's rows split over them; eval.validator.run).
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ def run(
             single_cls=single_cls, augment=augment, verbose=verbose, save_json=save_json,
             save_txt=save_txt, save_conf=save_conf, save_hybrid=save_hybrid, half=half,
             workers=workers, save_dir=save_dir, sharded=sharded,
+            plots=task != "speed",  # the val plots by default, as the JAX CLI (reference val.py:192)
         )
 
     if task == "study":  # mAP against latency (reference val.py:611-622)

@@ -22,6 +22,11 @@ data.datasets.DataLoader; `shapes[i]` is None or ((h0, w0), ratio_pad).
 Without one, `run` builds the loader of `data` (a dataset YAML or dict) as
 the JAX validator does: the `task` split, letterboxed to imgsz, rect
 batches with pad 0.5.
+
+With `plots=True` (as the JAX validator; utils/plots.py) it writes to
+save_dir the label and prediction mosaics of the first three batches
+(val_batch{i}_labels.png / _pred.png), the PR, F1, P and R curves where a
+detection is right, and the confusion matrix.
 """
 
 from __future__ import annotations
@@ -35,18 +40,14 @@ import torch
 
 from yolov3_tpu_torch.data.dataset_yaml import check_dataset
 from yolov3_tpu_torch.data.datasets import DataLoader, DetectionDataset
-from yolov3_tpu_torch.eval.metrics import ap_per_class, process_batch
+from yolov3_tpu_torch.eval.metrics import ConfusionMatrix, ap_per_class, process_batch
 from yolov3_tpu_torch.models.detect_head import decode_predictions
 from yolov3_tpu_torch.models.detection import DetectionModel, cast_for_inference, predict_augmented
 from yolov3_tpu_torch.ops.boxes import scale_boxes, xywh2xyxy, xyxy2xywh
 from yolov3_tpu_torch.ops.nms import batched_nms, non_max_suppression
 from yolov3_tpu_torch.train.loss import compute_loss
 from yolov3_tpu_torch.utils.general import LOGGER, Profile, coco80_to_coco91_class
-
-# arguments of the JAX `run` this port does not take yet, and the ROADMAP.md item that brings each
-NOT_PORTED = {
-    "plots": "plots (ROADMAP.md queue 1 item 5)",
-}
+from yolov3_tpu_torch.utils.plots import plot_confusion_matrix, plot_images, plot_mc_curve, plot_pr_curve
 
 
 def run(
@@ -105,16 +106,13 @@ def run(
     once a shard), the detections gathered on the model's device (the
     mesh's first); a batch the mesh does not divide runs unsharded, and the
     loss, where asked for, is the whole batch's, as in the JAX validator.
-    `plots` raises NotImplementedError when set (NOT_PORTED).
+    plots: the mosaics, curves and confusion matrix (see the module docstring).
 
     Returns ((mp, mr, map50, map, *losses), per_class_maps, speeds_ms).
     """
     from yolov3_tpu_torch.models.backend import MultiBackend
     from yolov3_tpu_torch.models.ensemble import Ensemble
 
-    for name, value in dict(plots=plots).items():
-        if value:
-            raise NotImplementedError(f"validator.run: {NOT_PORTED[name]} is not ported yet")
     if not isinstance(model, (DetectionModel, Ensemble, MultiBackend)):
         raise TypeError(f"validator.run: model is a {type(model).__name__}; it takes yolov3_tpu_torch's "
                         "DetectionModel, an Ensemble or a MultiBackend (exported artifacts)")
@@ -160,6 +158,9 @@ def run(
     stats = []
     loss_sum = np.zeros(3)
     n_batches = 0
+    confusion = ConfusionMatrix(nc=nc) if plots else None
+    if plots:
+        Path(save_dir).mkdir(parents=True, exist_ok=True)
     jdict = []
     # COCO80->91 category remap applies only to the real COCO dataset
     # (reference val.py:311,344); a custom dataset's class ids pass through
@@ -167,7 +168,7 @@ def run(
     is_coco = isinstance(_val_split, str) and _val_split.replace("\\", "/").endswith("coco/val2017.txt")
     class_map = coco80_to_coco91_class() if is_coco else list(range(1000))
     dt = (Profile(device=device), Profile(device=device), Profile(device=device))
-    seen = 0
+    seen = n_plotted = 0
 
     for imgs, targets, mask, shapes in dataloader:
         with dt[0]:
@@ -193,6 +194,9 @@ def run(
         if with_loss:
             loss_sum += comps.cpu().numpy()
             n_batches += 1
+        if plots and n_plotted < 3:  # label and prediction mosaics (reference val.py:417-419)
+            _plot_val_batch(imgs, targets, mask, dets, n_valid, n_plotted, Path(save_dir), names)
+            n_plotted += 1
 
         with dt[2]:
             h, w = imgs.shape[1:3]
@@ -224,6 +228,8 @@ def run(
                     correct = np.zeros((0, niou), bool)
                 stats.append((correct, pred[:, 4] if len(pred) else np.zeros(0),
                               pred[:, 5] if len(pred) else np.zeros(0), labelsn[:, 0]))
+                if confusion is not None:
+                    confusion.process_batch(pred, labelsn)
                 if callbacks is not None:
                     # per-image hook with native-space predictions + labels
                     # (reference val.py:414 on_val_image_end)
@@ -243,13 +249,18 @@ def run(
         stats_cat = [np.zeros((0, niou), bool), np.zeros(0), np.zeros(0), np.zeros(0)]
     p = r = ap50 = ap_mean = np.zeros(0)
     if len(stats_cat) and stats_cat[0].any():
-        tp, fp, p, r, f1, ap, ap_class = ap_per_class(*stats_cat)
+        tp, fp, p, r, f1, ap, ap_class, *curves = ap_per_class(*stats_cat, curves=plots)
         ap50, ap_mean = ap[:, 0], ap.mean(1)
         mp, mr, map50, map_ = p.mean(), r.mean(), ap50.mean(), ap_mean.mean()
+        if plots:
+            _plot_curves(*curves, ap, [str(names.get(int(c), c)) for c in ap_class], Path(save_dir))
     else:
         mp = mr = map50 = map_ = 0.0
         ap_mean = np.zeros(nc)
         ap_class = np.array([], int)
+    if plots:  # whenever plots=True, with or without a right detection (reference val.py confusion_matrix.plot)
+        _plot_or_warn("confusion matrix", plot_confusion_matrix, confusion.matrix,
+                      [str(names.get(i, i)) for i in range(nc)], Path(save_dir) / "confusion_matrix.png")
 
     nt = np.bincount(stats_cat[3].astype(int), minlength=nc) if len(stats_cat[3]) else np.zeros(nc)
     LOGGER.info(f"{'all':>12}{seen:>11}{int(nt.sum()):>11}{mp:>11.3g}{mr:>11.3g}{map50:>11.3g}{map_:>11.3g}")
@@ -358,6 +369,47 @@ def _fetch_valid(dets, n_valid, max_det):
     so the max_det tail is zero padding."""
     n_valid = n_valid.cpu().numpy()
     return dets[:, : min(int(n_valid.max(initial=0)), max_det)].cpu().numpy(), n_valid
+
+
+def _plot_or_warn(what, fn, *args, **kwargs):
+    """fn(*args, **kwargs); a failure logs a warning and the validation goes on."""
+    try:
+        fn(*args, **kwargs)
+    except Exception as e:  # noqa: BLE001 — a plot never stops a validation run
+        LOGGER.warning(f"{what} plot failed: {e!r}")
+
+
+def _plot_curves(curves, ap, cls_names, save_dir):
+    """PR_curve.png, F1_curve.png, P_curve.png and R_curve.png from ap_per_class's curves."""
+    px, py, p_curve, r_curve, f1_curve = curves
+    n = len(cls_names)
+    _plot_or_warn("PR curve", plot_pr_curve, px, py, ap, save_dir / "PR_curve.png", cls_names)
+    for name, curve, ylabel in (("F1", f1_curve, "F1"), ("P", p_curve, "Precision"), ("R", r_curve, "Recall")):
+        _plot_or_warn(f"{name} curve", plot_mc_curve, px, curve[:n], save_dir / f"{name}_curve.png", cls_names,
+                      ylabel=ylabel)
+
+
+def _plot_val_batch(imgs, targets, mask, dets, n_valid, bi, save_dir, names, conf=0.25, max_boxes=15):
+    """val_batch{bi}_labels.png (the labels) and val_batch{bi}_pred.png (up to
+    `max_boxes` detections above `conf` an image) of one batch (reference val.py:417-419)."""
+    names = {int(k): v for k, v in dict(names).items()} if names else None
+    _plot_or_warn("val batch labels", plot_images, imgs, targets, masks=mask,
+                  fname=save_dir / f"val_batch{bi}_labels.png", names=names)
+    h, w = imgs.shape[1:3]
+    pt = np.zeros((imgs.shape[0], max_boxes, 5), np.float32)
+    pm = np.zeros((imgs.shape[0], max_boxes), bool)
+    for si in range(imgs.shape[0]):
+        d = dets[si, : n_valid[si]]
+        d = d[d[:, 4] > conf][:max_boxes]  # letterbox-space xyxy conf cls
+        if len(d):
+            pt[si, : len(d), 0] = d[:, 5]
+            pt[si, : len(d), 1] = (d[:, 0] + d[:, 2]) / 2 / w
+            pt[si, : len(d), 2] = (d[:, 1] + d[:, 3]) / 2 / h
+            pt[si, : len(d), 3] = (d[:, 2] - d[:, 0]) / w
+            pt[si, : len(d), 4] = (d[:, 3] - d[:, 1]) / h
+            pm[si, : len(d)] = True
+    _plot_or_warn("val batch predictions", plot_images, imgs, pt, masks=pm,
+                  fname=save_dir / f"val_batch{bi}_pred.png", names=names)
 
 
 def _save_one_txt(pred, labels_dir, stem, h0w0, save_conf):

@@ -11,6 +11,12 @@ the body runs in checkpointed segments (torch.utils.checkpoint), as the JAX
 `predict` decodes one forward, or with augment=True the test-time
 augmentation of `predict_augmented` (three scales, a left-right flip),
 the counterpart of the JAX package's `predict_augmented_pure`.
+
+The module's self-test builds a config (or, with --test, each of yolov3,
+yolov3-spp and yolov3-tiny), logs its summary and runs one forward, or with
+--line-profile prints the per-layer profile (utils/profiling.py):
+
+    python -m yolov3_tpu_torch.models.detection --cfg yolov3 --imgsz 640 --line-profile [--device cpu]
 """
 
 from __future__ import annotations
@@ -281,3 +287,34 @@ def cast_for_inference(model: DetectionModel, dtype=torch.bfloat16) -> Detection
         if isinstance(m, nn.BatchNorm2d):
             m.float()
     return model
+
+
+def _main(argv=None):
+    """The model self-test (JAX models/detection.py:_main, reference models/yolo.py:395-415)."""
+    import argparse
+
+    from yolov3_tpu_torch.utils.general import LOGGER
+    from yolov3_tpu_torch.utils.profiling import model_info, profile_layers
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--cfg", default="yolov3-tiny")
+    p.add_argument("--imgsz", type=int, default=256)
+    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--test", action="store_true", help="build all registered configs")
+    p.add_argument("--line-profile", action="store_true", help="per-layer time/FLOPs table")
+    p.add_argument("--device", default="", help="cuda (the default) or cpu")
+    a = p.parse_args(argv)
+
+    for name in ("yolov3", "yolov3-spp", "yolov3-tiny") if a.test else (a.cfg,):
+        model = DetectionModel.from_config(name, device=a.device or None)
+        model_info(model, a.imgsz)
+        if a.line_profile:
+            profile_layers(model, imgsz=a.imgsz, batch=a.batch_size)
+        else:
+            with torch.no_grad():
+                pred = model.predict(torch.zeros((a.batch_size, a.imgsz, a.imgsz, 3), device=model.device))
+            LOGGER.info(f"{name}: forward OK, decoded {tuple(pred.shape)}")
+
+
+if __name__ == "__main__":
+    _main()

@@ -13,8 +13,8 @@ probability 0.8 by a gaussian factor (sigma 0.2), clipped to its bounds.
 Randomness: the JAX package draws the parent method and row from the
 global `random` module and the mutation from np.random.default_rng(seed);
 here the first come from `rng` (a random.Random), so a run seeded alike
-replays the JAX draws. The evolution scatter plot is not drawn (plots are
-ROADMAP.md queue 1 item 5).
+replays the JAX draws. At the end the evolution's scatter plot is drawn
+beside the CSV (evolve.png, utils/plots.plot_evolve; matplotlib needed).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from pathlib import Path
 import numpy as np
 
 from yolov3_tpu_torch.utils.general import LOGGER, yaml_save
+from yolov3_tpu_torch.utils.plots import plot_evolve
 
 # {key: (mutation gain, min, max)}: the JAX package's table
 META = {
@@ -113,8 +114,8 @@ def log_generation(evolve_csv: Path, hyp, results, keys=None):
 
 def evolve(train_fn, base_hyp, generations=300, save_dir=Path("runs/evolve"), seed=0, rng=None):
     """The evolution loop: mutate -> train_fn(hyp) -> results[:4] -> log.
-    Writes save_dir/evolve.csv and the best generation's hyp_evolve.yaml;
-    returns (best hyp, best fitness). `rng`: the parent draws' random.Random
+    Writes save_dir/evolve.csv, the best generation's hyp_evolve.yaml and
+    the scatter plot evolve.png; returns (best hyp, best fitness). `rng`: the parent draws' random.Random
     (default: one seeded with `seed`), shared across generations as the
     JAX package's global `random` is."""
     rng = rng if rng is not None else random.Random(seed)
@@ -131,6 +132,10 @@ def evolve(train_fn, base_hyp, generations=300, save_dir=Path("runs/evolve"), se
             best_fit, best_hyp = fit, hyp
             yaml_save(save_dir / "hyp_evolve.yaml", hyp)
         LOGGER.info(f"evolve gen {gen + 1}/{generations}: fitness {fit:.4f} (best {best_fit:.4f})")
+    try:  # the evolution's scatter plot (reference train.py:778 -> plots.py:243-267)
+        plot_evolve(evolve_csv)
+    except Exception as e:  # noqa: BLE001 — a plot never stops the search's result
+        LOGGER.warning(f"evolve plot failed: {e!r}")
     return best_hyp, best_fit
 
 

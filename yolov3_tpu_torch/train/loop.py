@@ -36,9 +36,17 @@ rank stops together. `resume=True` resumes every rank from weights/last.
 `sync_bn` is accepted and changes nothing: the statistics are the global
 batch's already (JAX :99-102).
 
+Plots (unless `noplots`, as in the JAX package): labels.png and the label
+correlogram before the first epoch, the first three train batches' mosaics,
+the last epoch's validation plots and results.png at the end
+(utils/loggers, utils/plots.py).
+
+`half=None` decides bf16 autocast as the JAX package does: on the card when
+`utils.checks.check_bf16` passes (under a process group, rank 0's verdict),
+float32 on the CPU.
+
 Not ported (each raises NotImplementedError): `s2d_stem` (ROADMAP.md queue
-1 item 9), `upload_dataset` and `entity` (item 7) and plots: `noplots`
-defaults to True here, and `noplots=False` raises (item 5).
+1 item 9), `upload_dataset` and `entity` (item 7).
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from yolov3_tpu_torch.train.loss import LossConfig
 from yolov3_tpu_torch.train.optim import EarlyStopping, build_optimizer
 from yolov3_tpu_torch.train.step import init_train_state, make_train_step
 from yolov3_tpu_torch.utils.callbacks import Callbacks
+from yolov3_tpu_torch.utils.checks import check_bf16
 from yolov3_tpu_torch.utils.checkpoint import (load_checkpoint, load_model_from_checkpoint, restore_train_state,
                                                save_checkpoint, strip_checkpoint)
 from yolov3_tpu_torch.utils.general import (LOGGER, colorstr, increment_path, init_seeds,
@@ -74,8 +83,7 @@ HYPS = Path(__file__).resolve().parents[1] / "data" / "hyps"
 def _refuse(**options):
     items = {"s2d_stem": "the space-to-depth stem (ROADMAP.md queue 1 item 9)",
              "upload_dataset": "dataset upload to W&B (ROADMAP.md queue 1 item 7)",
-             "entity": "the W&B entity (ROADMAP.md queue 1 item 7)",
-             "plots": "plots; pass noplots=True (ROADMAP.md queue 1 item 5)"}
+             "entity": "the W&B entity (ROADMAP.md queue 1 item 7)"}
     for name, value in options.items():
         if value:
             raise NotImplementedError(f"train: {items[name]} is not ported yet")
@@ -122,7 +130,7 @@ def train(
     cache_images=None,
     remat=False,
     s2d_stem=False,
-    noplots=True,
+    noplots=False,
     rect=False,
     label_smoothing=0.0,
     sync_bn=False,
@@ -136,15 +144,14 @@ def train(
 
     The arguments are the JAX `train`'s, plus `device` (None means "cuda"
     and raises without one; the CPU only when asked for). `bbox_interval`
-    paces image logging, which is not ported, and is accepted unused.
-    `half=None` means bf16 autocast on the card and float32 on the CPU.
-    `noplots` defaults to True because plots are not ported; `s2d_stem`,
-    `upload_dataset`, `entity` and `noplots=False` raise
-    NotImplementedError (see the module docstring). `resume=True`
+    paces image logging to the tracker sinks, which are not ported, and is
+    accepted unused. `half=None` means bf16 autocast on the card where
+    `check_bf16` passes, float32 on the CPU. `s2d_stem`, `upload_dataset`
+    and `entity` raise NotImplementedError (see the module docstring). `resume=True`
     continues the run in `save_dir` from weights/last, full or stripped.
     Under a process group every rank calls it (see the module docstring).
     """
-    _refuse(s2d_stem=s2d_stem, upload_dataset=upload_dataset, entity=entity, plots=not noplots)
+    _refuse(s2d_stem=s2d_stem, upload_dataset=upload_dataset, entity=entity)
     device = par.rank_device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -169,7 +176,7 @@ def train(
         yaml_save(save_dir / "hyp.yaml", hyp)
     rng, np_rng = init_seeds(seed)
     if main_rank:
-        Loggers(save_dir=save_dir).attach(callbacks)
+        Loggers(save_dir=save_dir, plots=not noplots).attach(callbacks)
     callbacks.run("on_pretrain_routine_start")
 
     data_dict = check_dataset(data)
@@ -193,8 +200,8 @@ def train(
         model = DetectionModel.from_config(cfg, seed=seed, device=device, nc=nc)
         start_epoch, best_fitness = 0, 0.0
     model.names = names
-    if half is None:
-        half = device.type == "cuda"
+    if half is None:  # the JAX package's AMP check (its loop.py:148); every rank takes rank 0's verdict
+        half = par.broadcast_object(device.type == "cuda" and check_bf16(model))
     compute_dtype = torch.bfloat16 if half else torch.float32
     stride = int(max(model.spec.strides))
     nl = model.spec.nl
@@ -320,7 +327,7 @@ def train(
             results, maps, _ = validator.run(
                 data_dict, model=ema_model, batch_size=batch_size, imgsz=imgsz, dataloader=val_loader,
                 loss_cfg=loss_cfg, compute_loss_flag=True, names=names, single_cls=single_cls,
-                save_dir=save_dir, callbacks=callbacks,
+                plots=epoch == epochs - 1 and not noplots, save_dir=save_dir, callbacks=callbacks,
             )
             fi = float(fitness(np.array(results).reshape(1, -1))[0])
             callbacks.run("on_val_end", epoch=epoch)

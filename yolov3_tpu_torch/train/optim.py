@@ -28,7 +28,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from yolov3_tpu_torch.utils.general import LOGGER
+from yolov3_tpu_torch.utils.general import LOGGER, one_cycle
 
 GRAD_CLIP_NORM = 10.0
 
@@ -64,7 +64,7 @@ def build_schedules(hyp, epochs, steps_per_epoch, batch_size, nbs=64, cos_lr=Fal
 
     def lf(epoch):  # epoch -> decay fraction
         if cos_lr:
-            return ((1 - math.cos(epoch * math.pi / epochs)) / 2) * (lrf - 1) + 1
+            return one_cycle(1.0, lrf, epochs)(epoch)
         return (1 - epoch / epochs) * (1.0 - lrf) + lrf
 
     def lr_at(step, warmup_start):

@@ -1,18 +1,24 @@
 """General helpers: logger, YAML files, seeds, run directories, channel
-rounding, device choice, timer, class weights, COCO class ids, git
-provenance and the CLIs' checks (the parts of yolov3_tpu/utils/general.py
-the port needs, kept as its own copy)."""
+rounding, device choice, timers, class weights, COCO class ids, git
+provenance, the CLIs' checks and the small context managers and decorators
+of yolov3_tpu/utils/general.py (emojis, TryExcept, Timeout, threaded,
+WorkingDirectory, one_cycle, clean_url, file_date), kept as the port's own
+copy."""
 
 from __future__ import annotations
 
 import contextlib
+import datetime
+import functools
 import glob
 import logging
 import math
 import os
+import platform
 import random
 import re
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -52,6 +58,102 @@ def colorstr(*input):
         "end": "\033[0m", "bold": "\033[1m", "underline": "\033[4m",
     }  # fmt: skip
     return "".join(colors[x] for x in args) + f"{string}" + colors["end"]
+
+
+def emojis(string=""):
+    """A platform-safe version of a string (emojis stripped on Windows)."""
+    return string.encode().decode("ascii", "ignore") if platform.system() == "Windows" else string
+
+
+class TryExcept(contextlib.ContextDecorator):
+    """Context manager / decorator that logs an exception as a warning instead of raising it."""
+
+    def __init__(self, msg=""):
+        self.msg = msg
+
+    def __enter__(self):
+        pass
+
+    def __exit__(self, exc_type, value, traceback):
+        if value:
+            LOGGER.warning(f"{self.msg}{': ' if self.msg else ''}{value}")
+        return True
+
+
+class Timeout(contextlib.ContextDecorator):
+    """Raise TimeoutError in a block that outlasts `seconds` (SIGALRM, so Unix
+    and the main thread only); suppressed unless suppress_timeout_errors=False."""
+
+    def __init__(self, seconds, timeout_msg="", suppress_timeout_errors=True):
+        self.seconds = int(seconds)
+        self.msg = timeout_msg
+        self.suppress = bool(suppress_timeout_errors)
+
+    def _handler(self, signum, frame):
+        raise TimeoutError(self.msg)
+
+    def __enter__(self):
+        import signal
+
+        if platform.system() != "Windows":
+            signal.signal(signal.SIGALRM, self._handler)
+            signal.alarm(self.seconds)
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        import signal
+
+        if platform.system() != "Windows":
+            signal.alarm(0)
+        if self.suppress and exc_type is TimeoutError:
+            return True
+
+
+def threaded(func):
+    """Decorator: run `func` in a daemon thread and return the Thread."""
+
+    @functools.wraps(func)
+    def wrapper(*args, **kwargs):
+        t = threading.Thread(target=func, args=args, kwargs=kwargs, daemon=True)
+        t.start()
+        return t
+
+    return wrapper
+
+
+class WorkingDirectory(contextlib.ContextDecorator):
+    """chdir to `new_dir` for the block, back after it."""
+
+    def __init__(self, new_dir):
+        self.dir = new_dir
+
+    def __enter__(self):
+        self.cwd = Path.cwd().resolve()
+        os.chdir(self.dir)
+
+    def __exit__(self, *exc):
+        os.chdir(self.cwd)
+
+
+def one_cycle(y1=0.0, y2=1.0, steps=100):
+    """Sinusoidal ramp y1 -> y2 over `steps` (the cosine LR schedule's shape)."""
+    return lambda x: ((1 - math.cos(x * math.pi / steps)) / 2) * (y2 - y1) + y1
+
+
+def clean_url(url):
+    """A URL without its query (credentials and tokens) for display."""
+    return re.sub(r"\?.*$", "", str(url)).replace(":@", "://")
+
+
+def file_date(path=__file__):
+    """A file's modification date as 'year-month-day', e.g. '2026-8-16'."""
+    t = datetime.datetime.fromtimestamp(Path(path).stat().st_mtime)
+    return f"{t.year}-{t.month}-{t.day}"
+
+
+def get_latest_run(search_dir="."):
+    """The most recently created 'last' checkpoint under search_dir, or ''."""
+    items = glob.glob(f"{search_dir}/**/last*", recursive=True)
+    return max(items, key=os.path.getctime) if items else ""
 
 
 def yaml_load(file="data.yaml"):

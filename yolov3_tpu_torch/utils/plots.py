@@ -1,5 +1,6 @@
-"""Box drawing for detect and AutoShape: the colour palette, `Annotator` and
-`save_one_box` (yolov3_tpu/utils/plots.py:18-86).
+"""Drawing and plots (yolov3_tpu/utils/plots.py): the colour palette,
+`Annotator`, `save_one_box`, the batch mosaics of `plot_images`, and the
+training and validation plots.
 
 The JAX package draws with cv2.rectangle(..., LINE_AA) and cv2.putText
 (font 0). The port draws the same pixels without OpenCV: the glyph masks,
@@ -7,17 +8,25 @@ advances and text sizes of font 0, and one box of each thickness, were read
 from cv2 by scripts/recover_annotator_atlas.py into fonts/annotator_atlas.npz,
 and csrc/host_ops.cpp blends them into the image (a glyph exactly as cv2
 blends it; a box within 2 levels of cv2 on more than 99.5% of its pixels).
-The atlas covers line widths 1..12; a wider Annotator draws at 12.
+The atlas covers line widths 1..32; a wider line raises.
 tests/test_torch_plots.py holds the drawing to the JAX package's.
 
-Crops are written as PNG (`image_ops.imwrite_png`), where the JAX package
-writes JPEG through cv2.imwrite.
+Images (crops, mosaics, the label correlogram) are written as PNG
+(`image_ops.imwrite_png`, or matplotlib), where the JAX package writes JPEG.
+`plot_images` needs nothing beyond numpy, so it runs on any host. The other
+plots draw with matplotlib (the correlogram with seaborn and pandas too),
+imported inside the function: on a host without the package the function
+logs one line, writes nothing and returns None. Nothing is installed.
 """
 
 from __future__ import annotations
 
+import contextlib
+import csv
 import ctypes
 import functools
+import importlib
+import math
 from pathlib import Path
 
 import numpy as np
@@ -25,6 +34,7 @@ import numpy as np
 from yolov3_tpu_torch.data import image_ops
 from yolov3_tpu_torch.ops import host_build
 from yolov3_tpu_torch.ops.boxes import xywh2xyxy
+from yolov3_tpu_torch.utils.general import LOGGER
 
 ATLAS = Path(__file__).resolve().parent / "fonts" / "annotator_atlas.npz"
 LINE_AA, LINE_8 = 16, 8  # cv2.LINE_AA, cv2.LINE_8
@@ -167,3 +177,243 @@ def save_one_box(xyxy, im, file=Path("im.png"), gain=1.02, pad=10, square=False,
         file.parent.mkdir(parents=True, exist_ok=True)
         image_ops.imwrite_png(file, crop)
     return crop
+
+
+def plot_images(images, targets, masks=None, paths=None, fname="images.png", names=None, max_subplots=16):
+    """A tiled mosaic of a batch with its boxes, written as PNG (`fname` with
+    the suffix .png); returns the BGR mosaic.
+
+    images: (B, H, W, 3) uint8 RGB; targets: (B, M, 5) [cls, xywh normalised]
+    with masks (B, M) of the valid rows (without masks, the rows of width > 0)."""
+    bs = min(len(images), max_subplots)
+    ns = math.ceil(bs**0.5)
+    h, w = images.shape[1:3]
+    grid = np.full((ns * h, ns * w, 3), 255, np.uint8)
+    ann = Annotator(grid)
+    for i in range(bs):
+        y, x = (i // ns) * h, (i % ns) * w
+        grid[y : y + h, x : x + w] = images[i][..., ::-1]  # to BGR
+        if targets is not None:
+            t = targets[i]
+            valid = masks[i] if masks is not None else (t[:, 3] > 0)
+            for cls, cx, cy, bw, bh in t[valid][:, :5]:
+                box = [x + (cx - bw / 2) * w, y + (cy - bh / 2) * h, x + (cx + bw / 2) * w, y + (cy + bh / 2) * h]
+                label = names.get(int(cls), str(int(cls))) if names else str(int(cls))
+                ann.box_label(box, label, color=colors(cls, True))
+    image_ops.imwrite_png(Path(fname).with_suffix(".png"), grid)
+    return grid
+
+
+def _modules(what, *names):
+    """The named modules, or None after one log line when one is not installed."""
+    try:
+        return [importlib.import_module(n) for n in names]
+    except ImportError as e:
+        LOGGER.warning(f"{what}: {e.name} is not installed; nothing written")
+        return None
+
+
+def _pyplot(what, *more):
+    """matplotlib.pyplot on the Agg backend and the `more` modules, or None (see _modules)."""
+    mods = _modules(what, "matplotlib", *more)
+    if mods is None:
+        return None
+    mods[0].use("Agg")
+    return [importlib.import_module("matplotlib.pyplot"), *mods[1:]]
+
+
+def _read_csv(file):
+    """A CSV of numbers with a header as {column: float array}; names stripped."""
+    with open(file, newline="") as f:
+        rows = list(csv.reader(f))
+    header = [c.strip() for c in rows[0]]
+    return {c: np.array([float(r[j]) for r in rows[1:]]) for j, c in enumerate(header)}
+
+
+def plot_results(csv_file="results.csv", save_path=None):
+    """The training curves of a results.csv, one panel a column, as results.png beside it."""
+    mods = _pyplot("results plot")
+    if mods is None:
+        return None
+    plt, = mods
+    df = _read_csv(csv_file)
+    cols = [c for c in df if c != "epoch"]
+    ncols = 5
+    nrows = math.ceil(len(cols) / ncols)
+    fig, axes = plt.subplots(nrows, ncols, figsize=(3 * ncols, 2.5 * nrows), tight_layout=True)
+    for ax, c in zip(np.ravel(axes), cols):
+        ax.plot(df["epoch"], df[c], marker=".", linewidth=1, markersize=4)
+        ax.set_title(c, fontsize=9)
+    out = save_path or Path(csv_file).with_name("results.png")
+    fig.savefig(out, dpi=150)
+    plt.close(fig)
+    LOGGER.info(f"Saved results plot to {out}")
+    return out
+
+
+def plot_pr_curve(px, py, ap, save_path=Path("pr_curve.png"), names=()):
+    """Per-class precision-recall curves and their mean, with mAP@0.5."""
+    mods = _pyplot("PR curve")
+    if mods is None:
+        return None
+    plt, = mods
+    fig, ax = plt.subplots(1, 1, figsize=(9, 6), tight_layout=True)
+    py = np.stack(py, axis=1) if isinstance(py, list) else py
+    if 0 < len(names) < 21:
+        for i, y in enumerate(py.T):
+            ax.plot(px, y, linewidth=1, label=f"{names[i]} {ap[i, 0]:.3f}")
+    else:
+        ax.plot(px, py, linewidth=1, color="grey")
+    ax.plot(px, py.mean(1), linewidth=3, color="blue", label=f"all classes {ap[:, 0].mean():.3f} mAP@0.5")
+    ax.set_xlabel("Recall")
+    ax.set_ylabel("Precision")
+    ax.set_xlim(0, 1)
+    ax.set_ylim(0, 1)
+    ax.legend(bbox_to_anchor=(1.04, 1), loc="upper left")
+    fig.savefig(save_path, dpi=250)
+    plt.close(fig)
+    return save_path
+
+
+def plot_mc_curve(px, py, save_path=Path("mc_curve.png"), names=(), xlabel="Confidence", ylabel="Metric"):
+    """Metric-against-confidence curves (F1, P, R) per class and their mean."""
+    mods = _pyplot(f"{ylabel} curve")
+    if mods is None:
+        return None
+    plt, = mods
+    fig, ax = plt.subplots(1, 1, figsize=(9, 6), tight_layout=True)
+    if 0 < len(names) < 21:
+        for i, y in enumerate(py):
+            ax.plot(px, y, linewidth=1, label=str(names[i]))
+    else:
+        ax.plot(px, py.T, linewidth=1, color="grey")
+    y = py.mean(0)
+    ax.plot(px, y, linewidth=3, color="blue", label=f"all classes {y.max():.2f} at {px[y.argmax()]:.3f}")
+    ax.set_xlabel(xlabel)
+    ax.set_ylabel(ylabel)
+    ax.set_xlim(0, 1)
+    ax.set_ylim(0, 1)
+    ax.legend(bbox_to_anchor=(1.04, 1), loc="upper left")
+    fig.savefig(save_path, dpi=250)
+    plt.close(fig)
+    return save_path
+
+
+def plot_confusion_matrix(matrix, names=(), save_path=Path("confusion_matrix.png"), normalize=True):
+    """The confusion matrix (eval.metrics.ConfusionMatrix.matrix) as a heat map, columns normalised."""
+    mods = _pyplot("confusion matrix")
+    if mods is None:
+        return None
+    plt, = mods
+    m = matrix.copy().astype(float)
+    if normalize:
+        m /= (m.sum(0, keepdims=True) + 1e-9)
+    m[m < 0.005] = np.nan
+    fig, ax = plt.subplots(figsize=(10, 8), tight_layout=True)
+    im = ax.imshow(m, cmap="Blues", vmin=0.0)
+    fig.colorbar(im)
+    labels = [*names, "background"] if names else None
+    n = m.shape[0]
+    if labels and len(labels) == n:
+        ax.set_xticks(range(n), labels=labels, rotation=90, fontsize=8)
+        ax.set_yticks(range(n), labels=labels, fontsize=8)
+    ax.set_xlabel("True")
+    ax.set_ylabel("Predicted")
+    fig.savefig(save_path, dpi=250)
+    plt.close(fig)
+    return save_path
+
+
+def plot_labels(labels, names=(), save_dir=Path(".")):
+    """Label statistics as labels.png: the class histogram and the box centre and size distributions.
+    labels: (n, 5) [cls, xywh normalised]."""
+    mods = _pyplot("label plot")
+    if mods is None:
+        return None
+    plt, = mods
+    c = labels[:, 0]
+    boxes = labels[:, 1:5]
+    fig, axes = plt.subplots(2, 2, figsize=(10, 10), tight_layout=True)
+    nc = int(c.max() + 1) if len(c) else 1
+    axes[0, 0].hist(c, bins=np.arange(nc + 1) - 0.5, rwidth=0.8)
+    axes[0, 0].set_xlabel("class")
+    axes[0, 1].scatter(boxes[:, 0], boxes[:, 1], s=3, alpha=0.4)
+    axes[0, 1].set_xlabel("x")
+    axes[0, 1].set_ylabel("y")
+    axes[1, 0].scatter(boxes[:, 2], boxes[:, 3], s=3, alpha=0.4)
+    axes[1, 0].set_xlabel("width")
+    axes[1, 0].set_ylabel("height")
+    axes[1, 1].hist2d(boxes[:, 2], boxes[:, 3], bins=50, cmap="Blues")
+    axes[1, 1].set_xlabel("width")
+    axes[1, 1].set_ylabel("height")
+    out = Path(save_dir) / "labels.png"
+    fig.savefig(out, dpi=200)
+    plt.close(fig)
+    return out
+
+
+def plot_labels_correlogram(labels, save_dir=Path(".")):
+    """The pairwise (x, y, w, h) correlogram of the labels (seaborn's pairplot) as labels_correlogram.png."""
+    labels = np.asarray(labels)
+    if not len(labels):
+        return None
+    mods = _pyplot("labels correlogram", "pandas", "seaborn")
+    if mods is None:
+        return None
+    plt, pd, sn = mods
+    df = pd.DataFrame(labels[:, 1:5], columns=["x", "y", "width", "height"])
+    sn.pairplot(df, corner=True, diag_kind="auto", kind="hist", diag_kws=dict(bins=50), plot_kws=dict(pmax=0.9))
+    out = Path(save_dir) / "labels_correlogram.png"
+    plt.savefig(out, dpi=200)
+    plt.close()
+    return out
+
+
+def plot_evolve(evolve_csv, save_path=None):
+    """The hyper-parameter evolution's scatter matrix (fitness against each
+    hyper-parameter), as the CSV's name with the suffix .png."""
+    mods = _pyplot("evolve plot")
+    if mods is None:
+        return None
+    plt, = mods
+    df = _read_csv(evolve_csv)
+    metrics = ("P", "R", "mAP50", "mAP50-95")
+    keys = [c for c in df if c not in metrics]
+    f = (np.stack([df[k] for k in metrics], 1) * [0.0, 0.0, 0.1, 0.9]).sum(1)
+    ncols = 6
+    nrows = int(np.ceil(len(keys) / ncols))
+    fig, axes = plt.subplots(nrows, ncols, figsize=(2.5 * ncols, 2.5 * nrows), tight_layout=True)
+    for ax, k in zip(np.ravel(axes), keys):
+        ax.scatter(df[k], f, c=f, cmap="viridis", s=12, alpha=0.7)
+        ax.set_title(f"{k} = {df[k][f.argmax()]:.3g}", fontsize=8)
+    out = save_path or Path(evolve_csv).with_suffix(".png")
+    fig.savefig(out, dpi=200)
+    plt.close(fig)
+    return out
+
+
+def feature_visualization(x, module_type, stage, n=32, save_dir=Path("runs/detect/exp")):
+    """The first `n` channels of the first image of a (B, C, H, W) feature
+    map as a grid, stage{stage}_{module type}_features.png (detect --visualize)."""
+    if x.ndim != 4:
+        return None
+    _, c, h, w = x.shape
+    if h <= 1 or w <= 1:
+        return None
+    mods = _pyplot("feature visualization")
+    if mods is None:
+        return None
+    plt, = mods
+    x = x.detach().float().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+    f = Path(save_dir) / f"stage{stage}_{module_type.split('.')[-1]}_features.png"
+    n = min(n, c)
+    fig, ax = plt.subplots(math.ceil(n / 8), 8, tight_layout=True)
+    ax = np.ravel(ax)
+    for i in range(n):
+        ax[i].imshow(x[0, i])
+        ax[i].axis("off")
+    with contextlib.suppress(Exception):
+        fig.savefig(f, dpi=300, bbox_inches="tight")
+    plt.close(fig)
+    LOGGER.info(f"Saved feature visualization to {f}")
+    return f
