@@ -65,12 +65,16 @@ Phases, each printing its result on its own line:
      BatchNorm statistics (updated once);
   9. detection from JPEGs on disk: every file of tests/data/jpeg and both
      sample images decoded by the in-tree decoder to the SHA-256 of cv2's
-     decode pinned in digests.json (ms per megapixel); then cli.detect.run
+     decode pinned in digests.json (ms per megapixel), and those images and
+     twelve synthetic ones (1x1 to 720x1280, gray, BGR, BGRA) encoded by the
+     in-tree JPEG encoder to the SHA-256 of cv2.imencode's bytes pinned in
+     encode_digests.json (ms per megapixel); then cli.detect.run
      at yolov3@640 (its own planted weights) from a port checkpoint, from
      the same weights as a reference yolov3.pt (equal detections) and with
      --augment, over those files: K1 once an image through its
      shared-memory route, every image's detections equal to the plain NMS,
-     annotated PNGs, labels and crops; K1's device time at the detect shape;
+     annotated JPEGs, labels and crops (JPEG, as the JAX package writes
+     them); K1's device time at the detect shape;
      hub.custom on the list of paths (one K1 launch); cli.val.run with both
      weights as an Ensemble over a synthetic PNG dataset (K1 once a batch);
  10. the trainer: a synthetic PNG dataset written to a temporary directory
@@ -114,10 +118,20 @@ Phases, each printing its result on its own line:
      `last` on the train split (K1 once a batch): trained mAP50 > 0.5 and
      > untrained + 0.4 (tests/test_e2e.py's bars); the loop's and the
      loader's img/s, the device busy share of one epoch's loop, which of
-     matplotlib / seaborn / pandas the host has and the plots written; then
+     matplotlib / seaborn / pandas the host has, the plots written (the
+     mosaics as JPEG) and the logger sinks that were on; then
      on full-width yolov3 at 640: check_bf16's deltas, profile_layers
      (per-layer ms by CUDA events, GFLOPs beside the FLOP counter's) and
      model_memory_bytes at batch 8.
+ 14. the host greedy NMS (phase_host_nms, after 12, on the planted model):
+     yolov3_tpu_torch.native.greedy_nms_batch on the host against K1 on the
+     serving batch's top-k candidates (B=32, K=448) and on two val frames'
+     candidates at the val grade (K=30000): n equal, rows within the NMS
+     bars, the images equal in every bit counted; non_max_suppression on a
+     numpy prediction (the host engine) against batched_nms through K1; the
+     host loop's ms beside K1's.
+The first lines also name the optional packages the host has (env:
+tensorboard, tensorflow, wandb, clearml, comet_ml, cv2, matplotlib).
 With `--kernel-times [ROOT]` it only times K3, K1 and K2 of the package under
 ROOT (default: beside this file) at the main paths' shapes and stops: run
 once per tree, parent, change, change, parent, to compare two trees on one
@@ -310,6 +324,117 @@ def phase_nms(rng, shapes=NMS_SHAPES, device="cuda"):
               f"{ms / rows[label]['n_mean'] * 1e3 if rows[label]['n_mean'] else float('nan'):.2f} us/step",
               flush=True)
     return rows
+
+
+HOST_NMS_VAL = dict(conf_thres=0.001, iou_thres=0.6, multi_label=True, max_det=300, max_nms=30000)  # the val grade
+OPTIONAL_PACKAGES = ("tensorboard", "tensorflow", "wandb", "clearml", "comet_ml", "cv2", "matplotlib")
+
+
+def host_loop_ms(fn, iters=3):
+    """Least wall time of a host call over `iters` runs, in ms."""
+    best = float("inf")
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def phase_host_nms(model, serving_batch, val_imgs, gpu):
+    """The host greedy NMS (yolov3_tpu_torch.native, csrc/host_ops.cpp) against
+    K1 on the same candidates from the card: the serving batch's top-k
+    candidates (B=32, K=448, from the fused bf16 forward and decode_topk_nhwc),
+    and two val frames' candidates at the val grade (K=30000, multi-label,
+    conf 0.001, iou 0.6: the candidates batched_nms hands K1). n equal per
+    image and rows within the NMS bars (box 0.1, conf 1e-3); the images whose
+    rows are equal in every bit are counted. Also non_max_suppression on the
+    val predictions as a numpy array (engine "auto": the host loop) against
+    batched_nms on the card. Times: the host loop's best of three against
+    K1's device time and its time with the launch."""
+    from yolov3_tpu_torch import native
+    from yolov3_tpu_torch.models.detect_head import decode_predictions, decode_topk_nhwc
+    from yolov3_tpu_torch.models.detection import cast_for_inference
+    from yolov3_tpu_torch.ops.nms import MAX_WH, batched_nms, nms_from_candidates, non_max_suppression
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
+
+    check(native.available(), "host NMS: the host library did not load")
+    reset_kernel_counts()
+    rows, timing_launches = {}, [0]
+
+    def compare(label, args, iou, max_det=300):
+        out_k, n_k = greedy_nms(*args, iou, max_det)
+        torch.cuda.synchronize()
+        host = [a.float().cpu().numpy() for a in args]
+        out_h, n_h = native.greedy_nms_batch(*host, iou, max_det)
+        n_k, out_k = n_k.cpu().numpy(), out_k.cpu().numpy()
+        check((n_k == n_h).all(), f"host NMS {label}: n {n_h.tolist()} != K1 {n_k.tolist()}")
+        box_err = conf_err = 0.0
+        exact = 0
+        for b in range(len(n_k)):
+            e = check_dets(out_h[b, : n_h[b]], out_k[b, : n_k[b]], f"host NMS {label} image {b}")
+            box_err, conf_err = max(box_err, e[0]), max(conf_err, e[1])
+            exact += bool(np.array_equal(out_h[b], out_k[b]))
+        host_ms = host_loop_ms(lambda: native.greedy_nms_batch(*host, iou, max_det))
+        before = greedy_nms.launches
+        k1_ms = device_ms(lambda: greedy_nms(*args, iou, max_det), NMS_KERNEL)
+        k1_launch_ms = cuda_ms(lambda: greedy_nms(*args, iou, max_det))
+        timing_launches[0] += greedy_nms.launches - before
+        B, K = args[2].shape
+        rows[label] = dict(B=B, K=K, n_sum=int(n_k.sum()), exact_images=exact, box_err=box_err, conf_err=conf_err,
+                           host_ms=host_ms, k1_ms=k1_ms, k1_launch_ms=k1_launch_ms)
+        print(f"host NMS {label}: B={B} K={K}, n equal ({int(n_k.sum())} rows), {exact} of {B} images equal in "
+              f"every bit (box err {box_err:.3g}, conf err {conf_err:.3g}); host loop {host_ms:.3f} ms against K1 "
+              f"{k1_ms:.4f} ms device ({k1_launch_ms:.4f} ms with launch) on {gpu}", flush=True)
+
+    with torch.inference_mode():
+        serving = cast_for_inference(model.fuse())
+        imgs = torch.as_tensor(serving_batch, device=model.device)
+        feats = serving(imgs.to(torch.bfloat16) / 255.0, raw=True)
+        boxes, scores, cls_ids, ov = decode_topk_nhwc(feats, model.anchors_px, model.spec.strides, with_overflow=True)
+        check(not bool(ov.any()), "host NMS: the serving batch overflowed its top-k")
+        boxes, scores, cls_ids = boxes.float(), scores.float(), cls_ids.float()
+        compare("serving", (boxes + (cls_ids * MAX_WH)[..., None], boxes, torch.where(scores > 0, scores, -1.0),
+                            cls_ids), 0.45)
+        want_d, want_n = nms_from_candidates(boxes, scores, cls_ids)  # the serving path's own call
+        check(int(want_n.sum()) == rows["serving"]["n_sum"], "host NMS: nms_from_candidates disagrees")
+        del serving, feats
+
+        x = torch.as_tensor(val_imgs, device=model.device).float() / 255.0
+        pred = decode_predictions(model(x), model.anchors_px, model.spec.strides)
+        captured = []
+
+        def capture(*args):
+            captured.append(args[:4])
+            return greedy_nms(*args)
+
+        dets_k, n_k = batched_nms(pred, **HOST_NMS_VAL, nms_fn=capture)
+        check(captured[0][2].shape[1] == 30000, f"host NMS: the val candidates are K={captured[0][2].shape[1]}")
+        compare("val", captured[0], HOST_NMS_VAL["iou_thres"])
+        t0 = time.perf_counter()
+        lists = non_max_suppression(pred.cpu().numpy(), **HOST_NMS_VAL)  # numpy: the host engine
+        engine_ms = (time.perf_counter() - t0) * 1e3
+        n_k = n_k.cpu().numpy()
+        check([len(d) for d in lists] == n_k.tolist(), f"host engine n {[len(d) for d in lists]} != K1 {n_k}")
+        for b, d in enumerate(lists):
+            check_dets(d, dets_k[b, : n_k[b]].cpu().numpy(), f"host engine val image {b}")
+    rows["val"]["engine_ms"] = engine_ms
+    check(rows["serving"]["n_sum"] > 0 and rows["val"]["n_sum"] > 0, "host NMS: a comparison without detections")
+    # K1 once a comparison (serving, nms_from_candidates, the val batched_nms and its candidates), K2 three
+    # times for the serving candidates; the timing loops' launches are left out
+    rows["launches"] = {**kernel_counts(), "greedy_nms": greedy_nms.launches - timing_launches[0]}
+    check(rows["launches"] == {"greedy_nms": 4, "masked_scores": 3, "conv3x3_bn_stats": 0},
+          f"host NMS phase launches {rows['launches']}")
+    print(f"host NMS: non_max_suppression(numpy, engine auto) at the val grade: {engine_ms:.1f} ms for "
+          f"{len(lists)} frames (batched_nms's candidate prep on the CPU and the host loop), rows equal to "
+          f"batched_nms through K1 within the NMS bars", flush=True)
+    return rows
+
+
+def optional_packages():
+    """Which optional packages this host has (found on its path; none is imported)."""
+    import importlib.util
+
+    return {p: importlib.util.find_spec(p) is not None for p in OPTIONAL_PACKAGES}
 
 
 SCORE_CELLS = (6400, 1600, 400)  # yolov3@640's 80x80, 40x40 and 20x20 grids
@@ -2104,7 +2229,7 @@ def phase_learn(gpu, epochs=LEARN_EPOCHS, n_images=LEARN_IMAGES, imgsz=LEARN_IMG
     import tempfile
     from pathlib import Path
 
-    from yolov3_tpu_torch.data import synthetic
+    from yolov3_tpu_torch.data import image_ops, synthetic
     from yolov3_tpu_torch.data.datasets import DataLoader, DetectionDataset
     from yolov3_tpu_torch.eval import validator
     from yolov3_tpu_torch.models.detection import DetectionModel
@@ -2191,15 +2316,25 @@ def phase_learn(gpu, epochs=LEARN_EPOCHS, n_images=LEARN_IMAGES, imgsz=LEARN_IMG
               f"trained mAP50 {maps['trained']:.4f} against untrained {maps['untrained']:.4f}: below the bars "
               f"(> {LEARN_MAP50}, > untrained + {LEARN_MARGIN})")
 
-        written = sorted(str(f.relative_to(run)) for f in run.rglob("*.png"))
+        written = sorted(str(f.relative_to(run)) for f in (*run.rglob("*.png"), *run.rglob("*.jpg")))
         drawn = {"labels.png", "results.png", "val_trained/PR_curve.png", "val_trained/confusion_matrix.png"}
-        numpy_only = {"train_batch0.png", "train_batch2.png", "val_trained/val_batch0_pred.png"}
+        numpy_only = {"train_batch0.jpg", "train_batch2.jpg", "val_trained/val_batch0_pred.jpg"}  # in-tree JPEG
         check(numpy_only <= set(written), f"mosaics missing: {sorted(numpy_only - set(written))}")
+        for f in numpy_only:
+            check(image_ops.imread(run / f).ndim == 3, f"{f} does not decode")
         if packages["matplotlib"]:
             check(drawn <= set(written), f"matplotlib is here, but {sorted(drawn - set(written))} are missing")
         else:
             check(not drawn & set(written), f"no matplotlib, yet {sorted(drawn & set(written))} were written")
-        print(f"learn plots: packages on this host {packages}; {len(written)} PNGs written: {written}", flush=True)
+        print(f"learn plots: packages on this host {packages}; {len(written)} images written: {written}", flush=True)
+        # the tracker sinks train() had on: results.csv always; TensorBoard where it is importable (its events
+        # file in the run); W&B and Comet need an API key and ClearML its package, which a run here has not
+        events = sorted(run.glob("events.out.tfevents.*"))
+        sinks = ["csv"] + (["tb"] if events else [])
+        tb_found = importlib.util.find_spec("tensorboard") is not None
+        check(bool(events) == tb_found, f"tensorboard importable: {tb_found}, events files {len(events)}")
+        print(f"learn loggers: sinks on {sinks} (tensorboard importable: {tb_found}; a missing sink is off, "
+              f"as in the JAX package)", flush=True)
 
         full = learn_yolov3_tools(device)
         out = dict(cfg=cfg, nc=nc, epochs=epochs, steps_per_epoch=steps, batch=bs, imgsz=imgsz, images=n_images,
@@ -2208,6 +2343,7 @@ def phase_learn(gpu, epochs=LEARN_EPOCHS, n_images=LEARN_IMAGES, imgsz=LEARN_IMG
                    device_busy=busy, busy_kernels=n_kernels, epoch_wall_s=[e[4] for e in per_epoch],
                    map50=maps, k3_per_step=launches["conv3x3_bn_stats"] / (steps * epochs), k3_layers=convs,
                    k1_per_val_batch={k: v / val_batches for k, v in val_launches.items()}, plot_packages=packages,
+                   logger_sinks=sinks,
                    plots_written=written, losses=[[r[k] for k in ("train/box_loss", "train/obj_loss",
                                                                   "train/cls_loss")] for r in rows], **full)
         out["phase_s"] = time.perf_counter() - t_phase
@@ -2258,11 +2394,38 @@ def detect_sources():
             + sorted((root / "tests/data/jpeg").glob("*.jpg")))
 
 
+JPEG_SYNTHETIC = ((1, 1, 3), (1, 1, 1), (2, 3, 3), (7, 5, 1), (15, 17, 3), (16, 16, 3), (17, 33, 4), (31, 47, 1),
+                  (97, 131, 3), (333, 517, 3), (333, 517, 1), (720, 1280, 3))  # (h, w, channels) the encoder takes
+
+
+def synthetic_jpeg_input(h, w, c):
+    """A deterministic uint8 image (h, w, c), 2-D for c == 1: hashed noise on
+    alternate 8x8 blocks, a gradient on the others (integer arithmetic only,
+    so every host makes the same bytes)."""
+    y, x, k = np.meshgrid(*(np.arange(n, dtype=np.uint64) for n in (h, w, c)), indexing="ij")
+    noise = ((y * 7919 + x * 104729 + k * 1299709 + 12345) * 2654435761 % (1 << 32)) >> 24
+    im = np.where((y // 8 + x // 8) % 2 == 1, noise, (y * 3 + x * 5 + k * 60) % 256).astype(np.uint8)
+    return im[..., 0] if c == 1 else im
+
+
+def jpeg_encode_inputs():
+    """(name, image) pairs the JPEG encoder is held to cv2 on: the sample
+    images and the corpus as the in-tree decoder reads them, and the
+    JPEG_SYNTHETIC shapes (tests/data/jpeg/encode_digests.json pins cv2's
+    encoding of each; scripts/make_jpeg_encode_digests.py writes it)."""
+    from yolov3_tpu_torch.data import image_ops
+
+    return ([(p.name, image_ops.imread(p)) for p in detect_sources()]
+            + [(f"synthetic_{h}x{w}x{c}", synthetic_jpeg_input(h, w, c)) for h, w, c in JPEG_SYNTHETIC])
+
+
 def phase_jpeg(gpu):
     """Decode both sample images and the corpus with the in-tree decoder; each
     decode's SHA-256 must equal tests/data/jpeg/digests.json (cv2's decode,
     pinned where cv2 is installed: this host has none). ms per megapixel over
-    the files, three decodes each."""
+    the files, three decodes each. Then encode them and the synthetic images:
+    each JPEG's SHA-256 must equal tests/data/jpeg/encode_digests.json
+    (cv2.imencode(".jpg") at its defaults); ms per megapixel, three encodes each."""
     import hashlib
     from pathlib import Path
 
@@ -2285,7 +2448,24 @@ def phase_jpeg(gpu):
     ms_per_mp = secs * 1e3 / mp
     print(f"JPEG: {len(files)} files ({mp:.2f} MP) decode to cv2's pinned digests; {ms_per_mp:.2f} ms per megapixel "
           f"on the host of {gpu}", flush=True)
-    return dict(files=len(files), megapixels=mp, ms_per_mp=ms_per_mp)
+
+    pinned = json.loads((Path(__file__).resolve().parent / "tests/data/jpeg/encode_digests.json").read_text())
+    inputs = jpeg_encode_inputs()
+    check(sorted(n for n, _ in inputs) == sorted(pinned), f"{len(inputs)} images to encode, {len(pinned)} digests")
+    enc_mp, enc_secs = 0.0, 0.0
+    for name, im in inputs:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            data = image_ops.encode_jpeg(im)
+        enc_secs += (time.perf_counter() - t0) / 3
+        enc_mp += im.shape[0] * im.shape[1] / 1e6
+        check(hashlib.sha256(data).hexdigest() == pinned[name]["sha256"] and len(data) == pinned[name]["bytes"],
+              f"JPEG encode of {name} {im.shape}: the bytes differ from cv2.imencode's pinned digest")
+    enc_ms_per_mp = enc_secs * 1e3 / enc_mp
+    print(f"JPEG encode: {len(inputs)} images ({enc_mp:.2f} MP; 1x1 to 720x1280, gray, BGR and BGRA) encode to "
+          f"cv2's pinned digests; {enc_ms_per_mp:.2f} ms per megapixel on the host of {gpu}", flush=True)
+    return dict(files=len(files), megapixels=mp, ms_per_mp=ms_per_mp, encoded=len(inputs), encode_megapixels=enc_mp,
+                encode_ms_per_mp=enc_ms_per_mp)
 
 
 def detect_val_ensemble(model, probe, weights, tmp, gpu, batch_size=DETECT_VAL_BATCH):
@@ -2481,15 +2661,17 @@ def phase_detect(gpu):
                   f"({min(n_dets)}-{max(n_dets)} an image), K1 launches {launches['greedy_nms']} {routes}, equal to "
                   f"the plain NMS; per image: "
                   + ", ".join(f"{k} {v:.2f} ms" for k, v in runs[name]["speed_ms"].items())
-                  + f"; the run {wall:.2f} s (PNG, label and crop writes included) on {gpu}", flush=True)
+                  + f"; the run {wall:.2f} s (JPEG, label and crop writes included) on {gpu}", flush=True)
             seen.clear()
     finally:
         detect_cli.batched_nms = real_batched_nms
 
-    # outputs: annotated PNGs of the sources' shapes, parseable txt rows, crops; .pt equal to the checkpoint
+    # outputs: annotated JPEGs of the sources' shapes (decoded in-tree), parseable txt rows, crops; .pt equal to the
+    # checkpoint
     ck, ptr = runs["ckpt"]["save_dir"], runs["pt"]["save_dir"]
     for stem, im in originals.items():
-        check(image_ops.imread(ck / f"{stem}.png").shape == im.shape, f"annotated {stem}.png has another shape")
+        check(image_ops.imread(ck / f"{stem}.jpg").shape == im.shape, f"annotated {stem}.jpg has another shape")
+    check(not list(ck.rglob("*.png")), "detect wrote PNGs; the JAX package writes JPEG")
     n_rows, pairs = 0, set()
     for txt in sorted((ck / "labels").glob("*.txt")):
         rows = np.loadtxt(txt, ndmin=2)
@@ -2499,7 +2681,7 @@ def phase_detect(gpu):
         check(np.array_equal(rows, other), f"{txt.name}: the .pt run's rows differ from the checkpoint run's")
         n_rows += len(rows)
         pairs |= {(txt.stem, int(c)) for c in rows[:, 0]}
-    crops = len(list((ck / "crops").rglob("*.png")))  # one file an image and class, as the JAX package writes them
+    crops = len(list((ck / "crops").rglob("*.jpg")))  # one file an image and class, as the JAX package writes them
     check(n_rows == sum(runs["ckpt"]["n"]) and crops == len(pairs), f"{n_rows} txt rows, {crops} crops, "
           f"{sum(runs['ckpt']['n'])} detections, {len(pairs)} (image, class) pairs")
 
@@ -3171,6 +3353,8 @@ def main(argv=()):
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}",
           flush=True)
+    env = optional_packages()
+    print(f"env: optional packages on this host {json.dumps(env)}", flush=True)
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:  # the host ops' C++ build beside the nvcc builds
@@ -3199,6 +3383,7 @@ def main(argv=()):
     hybrid = phase_save_hybrid(model, val_batches, val["f32"]["map50"])
     exported = phase_export(model, val_batches, gpu)
     parallel_launches, parallel = phase_parallel(model, serving_batch, val_batches, val["f32"]["map50"], gpu)
+    host_nms = phase_host_nms(model, serving_batch, val_batches[0][0][:2], gpu)
     del model, val_batches  # its head carries the planted detections; the trainer starts from the seeded init
     jpeg = phase_jpeg(gpu)
     detect = phase_detect(gpu)
@@ -3228,7 +3413,7 @@ def main(argv=()):
              parallel_serve_launches=parallel_launches["greedy_nms_serve"],
              parallel_val_launches=parallel_launches["greedy_nms_val"],
              parallel_trainer_launches_rank0=parallel_launches["greedy_nms_trainer"],
-             learn_val_launches=learn_launches["greedy_nms"],
+             learn_val_launches=learn_launches["greedy_nms"], host_nms_launches=host_nms["launches"]["greedy_nms"],
              learn_val_launches_per_batch=learn_launches["greedy_nms"] / learn_launches["greedy_nms_val_batches"]),
         dict(name="masked_scores", route="cuda", source="yolov3_tpu_torch/csrc/score.cu",
              replaces="yolov3_tpu/ops/score_pallas.py:43", launches=launches["masked_scores"],
@@ -3255,7 +3440,8 @@ def main(argv=()):
     print(json.dumps({"nms_shapes": nms_rows, "conv_bn_shapes": conv_rows, "main_path": e2e, "http": http,
                       "fast_false": fast_false, "val": val, "merge": merge, "save_hybrid": hybrid, "train": train,
                       "remat": remat, "trainer": trainer, "jpeg": jpeg, "detect": detect, "zoo": zoo,
-                      "export": exported, "parallel": parallel, "learn": learn}))
+                      "export": exported, "parallel": parallel, "learn": learn, "host_nms": host_nms,
+                      "env": env}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -74,10 +74,33 @@ def test_main_without_device_needs_the_card(monkeypatch):
         train.main(train.parse_opt(argv=["--data", str(ROOT / "yolov3_tpu_torch/data/coco128.yaml")]))
 
 
-@pytest.mark.parametrize("argv,match", [(["--resume", "comet://x"], "item 7")])
+@pytest.mark.parametrize("argv,match", [(["--s2d-stem"], "item 6")])
 def test_train_unported_options_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         train.main(train.parse_opt(argv=["--device", "cpu", *argv]))
+
+
+def test_train_comet_resume_matches_jax(monkeypatch, tmp_path):
+    """--resume comet://<path>: both CLIs restore the experiment's checkpoint
+    directory and its opt.yaml through the (fake) Comet API, and train from
+    that checkpoint with the saved options."""
+    from test_loggers_sdk import _FakeCometAPIExperiment, _install_fake_comet
+
+    assets = {"a1": ("last/checkpoint.yaml", b"epoch: 3\n", True), "a2": ("last/state.pt", b"STATE", True),
+              "a3": ("opt.yaml", b"epochs: 7\nimgsz: 96\n", False)}
+    _install_fake_comet(monkeypatch, api_experiment=_FakeCometAPIExperiment(assets))
+    monkeypatch.chdir(tmp_path)
+    calls = {}
+    monkeypatch.setattr("yolov3_tpu_torch.train.loop.train", lambda **kw: calls.setdefault("port", kw))
+    monkeypatch.setattr(jax_train_cli, "train", lambda **kw: calls.setdefault("jax", kw))
+    train.main(train.parse_opt(argv=["--device", "cpu", "--resume", "comet://ws/proj/exp1"]))
+    monkeypatch.setattr("yolov3_tpu.utils.general.enable_compilation_cache", lambda *a, **k: None)
+    monkeypatch.setattr(sys, "argv", ["train.py", "--resume", "comet://ws/proj/exp1"])
+    jax_train_cli.main(jax_train_cli.parse_opt())
+    got, want = calls["port"], calls["jax"]
+    assert got["weights"] == want["weights"] == str(Path("runs/comet_resume/ws_proj_exp1/last"))
+    assert (got["epochs"], got["imgsz"], got["resume"]) == (want["epochs"], want["imgsz"], want["resume"]) == (7, 96, False)
+    assert (tmp_path / got["weights"] / "state.pt").read_bytes() == b"STATE"
 
 
 @pytest.mark.parametrize("argv,world", [(["--sync-bn"], None), (["--num-processes", "1"], 1)],

@@ -11,6 +11,7 @@ byte-equal too and labels to atol 1e-4.
 
 import random
 import shutil
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -160,12 +161,47 @@ def test_cutout_equals_jax():
     np.testing.assert_array_equal(got, want)
 
 
-def test_copy_paste_refuses_segments():
+def segment_instances(seed, h=96, w=128, n=6, touch=False):
+    """An image and n star-shaped instances: (n, 5) [cls, xyxy] labels and the
+    polygons, inside the image, or (touch) reaching its edges x = 0, w and
+    y = 0, h, which the mirrored paste turns into vertices on x = w."""
+    rng = np.random.default_rng(seed)
+    im = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    segs, labels = [], []
+    for i in range(n):
+        c = rng.uniform([10, 10], [w - 10, h - 10])
+        k = int(rng.integers(5, 12))
+        ang, r = np.sort(rng.uniform(0, 2 * np.pi, k)), rng.uniform(4, 30, k)
+        p = c + np.stack([r * np.cos(ang), r * np.sin(ang)], 1)
+        p = np.clip(p, [0, 0], [w, h]) if touch else np.clip(p, [0.5, 0.5], [w - 1, h - 1])
+        segs.append(p.astype(np.float32))
+        labels.append([i % 3, *p.min(0), *p.max(0)])
+    return im, np.array(labels, np.float32), segs
+
+
+@pytest.mark.parametrize("touch", [False, True], ids=["inside", "touching-edges"])
+def test_copy_paste_refuses_segments(touch):
+    """copy_paste with segments against the JAX package's (cv2.drawContours
+    and cv2.flip there, image_ops.fill_poly and a numpy flip here), the same
+    seeds for random.sample: labels and segments equal, the image byte-equal,
+    for polygons inside the image and for polygons whose mirrored vertices lie
+    on its edge x = w. (The name is kept from when copy_paste refused
+    segments.)"""
+    from yolov3_tpu.data.augment import copy_paste as jax_copy_paste
+
     im = np.zeros((8, 8, 3), np.uint8)
-    lb = np.zeros((0, 5), np.float32)
-    assert augment.copy_paste(im, lb, [], p=0.5, rng=random.Random(0))[0] is im
-    with pytest.raises(NotImplementedError, match="segments"):
-        augment.copy_paste(im, lb, [np.zeros((3, 2))], p=0.5, rng=random.Random(0))
+    assert augment.copy_paste(im, np.zeros((0, 5), np.float32), [], p=0.5, rng=random.Random(0))[0] is im
+    pasted = 0
+    for seed in range(40):
+        im, lb, segs = segment_instances(seed, touch=touch)
+        random.seed(seed)
+        want = jax_copy_paste(im.copy(), lb.copy(), [s.copy() for s in segs], p=0.8)
+        got = augment.copy_paste(im.copy(), lb.copy(), [s.copy() for s in segs], p=0.8, rng=random.Random(seed))
+        np.testing.assert_array_equal(got[1], want[1])
+        assert len(got[2]) == len(want[2]) and all(np.array_equal(g, w) for g, w in zip(got[2], want[2]))
+        np.testing.assert_array_equal(got[0], want[0], err_msg=f"seed {seed}")
+        pasted += len(got[2]) - len(segs)
+    assert pasted > 40
 
 
 def test_label_cache_and_corrupt_files(dataset_dir, tmp_path, monkeypatch):
@@ -241,13 +277,19 @@ def test_check_dataset(dataset_dir, tmp_path):
 
     got, want = check_dataset(dataset_dir / "dataset.yaml"), jax_check_dataset(str(dataset_dir / "dataset.yaml"))
     assert got == want and got["nc"] == 5 and got["names"][4] == "cross"
-    with pytest.raises(NotImplementedError, match="clearml"):
-        check_dataset("clearml://abc")
+    # clearml:// resolves through the ClearML SDK (tests/test_torch_loggers.py holds it to the JAX package's)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "clearml", None)
+        with pytest.raises(ImportError, match="clearml"):
+            check_dataset("clearml://abc")
     missing = {"path": str(tmp_path), "train": "images", "val": "nowhere", "names": ["a"]}
     with pytest.raises(FileNotFoundError):
         check_dataset(missing)
-    with pytest.raises(NotImplementedError, match="download"):
-        check_dataset({**missing, "download": "https://example.invalid/x.zip"})
+    # a download recipe runs as in the JAX package (tests/test_torch_dataset_tools.py); without autodownload it raises
+    recipe = {**missing, "download": f"bash -c 'mkdir -p {tmp_path}/nowhere'"}
+    with pytest.raises(FileNotFoundError, match="no download recipe"):
+        check_dataset(recipe, autodownload=False)
+    assert check_dataset(recipe) == jax_check_dataset(recipe) and (tmp_path / "nowhere").is_dir()
 
 
 def test_shard_per_host_takes_round_robin_batches(dataset_dir):

@@ -147,13 +147,26 @@ def assert_same(got, want, save_txt=True):
 
 
 def test_detect_matches_jax(setup, monkeypatch):
+    """Rows, labels and the files: the same names as the JAX CLI's (JPEG),
+    each the bytes cv2.imwrite gives for the array the port drew."""
+    import cv2
+
+    written, real = {}, image_ops.imwrite
+    monkeypatch.setattr(image_ops, "imwrite", lambda path, im: written.__setitem__(Path(path), im.copy()) or real(path, im))
     got, want = run_both(setup, monkeypatch, "plain", save_txt=True, save_conf=True, save_crop=True)
     assert_same(got, want)
     sd = got["save_dir"]
+
+    def images(d):
+        return sorted(str(p.relative_to(d)) for p in d.rglob("*.jpg"))
+
+    assert images(sd) == images(want["save_dir"]) and len(written) == len(images(sd))
+    for f, im in written.items():
+        assert f.suffix == ".jpg" and f.read_bytes() == cv2.imencode(".jpg", im)[1].tobytes(), f
     for p in sorted(setup["src"].glob("*.jpg")):
-        annotated = image_ops.imread(sd / f"{p.stem}.png")
+        annotated = image_ops.imread(sd / p.name)
         assert annotated.shape == image_ops.imread(p).shape
-    crops = sorted((sd / "crops").rglob("*.png"))
+    crops = sorted((sd / "crops").rglob("*.jpg"))
     assert crops and {c.parent.name for c in crops} <= {"person", "car", "dog"} | set(map(str, range(80)))
     assert set(detect.run.speed_ms) == {"pre", "inference", "nms", "post"}
 
@@ -174,7 +187,7 @@ def test_detect_classes_agnostic_matches_jax(setup, monkeypatch):
 def test_detect_refusals(setup, tmp_path):
     # --visualize is ported (tests/test_torch_plot_hooks.py)
     # exported .pt2 / .onnx run through MultiBackend (tests/test_torch_backend.py); what the port does not read raises
-    for artifact, error, match in (("m.stablehlo", ValueError, "pt2"), ("m.tflite", NotImplementedError, "item 11"),
+    for artifact, error, match in (("m.stablehlo", ValueError, "pt2"), ("m.tflite", NotImplementedError, "item 7"),
                                    ("m.onnx", FileNotFoundError, "sidecar")):
         with pytest.raises(error, match=match):
             detect.run(weights=artifact, device="cpu", project=str(tmp_path))

@@ -80,16 +80,16 @@ def test_train_val_detect_smoke(synth_dataset, tmp_path):
     for f in ("results.csv", "hyp.yaml", "weights/last/checkpoint.yaml", "weights/best/checkpoint.yaml",
               "weights/last/state.pt", "weights/best/state.pt"):
         assert (exp / f).exists(), f
-    # the default plots (utils/loggers, eval/validator.py), PNG where the JAX package writes JPEG
-    for f in ("labels.png", "labels_correlogram.png", "train_batch0.png", "results.png", "confusion_matrix.png",
-              "val_batch0_labels.png", "val_batch0_pred.png"):
+    # the default plots (utils/loggers, eval/validator.py), named as the JAX package names them
+    for f in ("labels.png", "labels_correlogram.jpg", "train_batch0.jpg", "results.png", "confusion_matrix.png",
+              "val_batch0_labels.jpg", "val_batch0_pred.jpg"):
         assert (exp / f).exists(), f"{f} missing; got {sorted(p.name for p in exp.iterdir())}"
     assert np.isfinite(best_fitness) and all(np.isfinite(results))
 
     src = Path(synth_dataset["path"]) / "images" / "train" / "000.jpg"
     out_dir = detect_cli.run(weights=exp / "weights" / "last", source=str(src), imgsz=(96, 96), conf_thres=0.001,
                              project=str(tmp_path / "detect"), save_txt=True, device="cpu")
-    assert (Path(out_dir) / "000.png").exists()
+    assert (Path(out_dir) / "000.jpg").exists()
     assert (Path(out_dir) / "labels" / "000.txt").exists()
 
 

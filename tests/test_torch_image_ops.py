@@ -106,6 +106,35 @@ def test_warp_perspective_equals_cv2(k):
     np.testing.assert_array_equal(image_ops.warp_perspective(im, m, size), want)
 
 
+def random_polygon(rng, placement, h, w):
+    """Integer vertices: a star inside the image, one reaching its edges
+    x = 0, w and y = 0, h (what copy_paste's mirrored segments give), one
+    across its borders, one far outside, or a random (self-crossing) one."""
+    k = int(rng.integers(3, 14))
+    c = rng.uniform([0, 0], [w, h])
+    ang, r = np.sort(rng.uniform(0, 2 * np.pi, k)), rng.uniform(1, 60, k)
+    star = c + np.stack([r * np.cos(ang), r * np.sin(ang)], 1)
+    p = {"inside": lambda: np.clip(star, 0, [w - 1, h - 1]), "edges": lambda: np.clip(star, 0, [w, h]),
+         "across": lambda: star, "far": lambda: rng.integers(-5000, 6000, (k, 2)),
+         "crossing": lambda: rng.integers(-40, max(w, h) + 40, (k, 2))}[placement]()
+    return p.astype(np.int32)
+
+
+@pytest.mark.parametrize("placement", ["inside", "edges", "across", "far", "crossing"])
+def test_fill_poly_equals_cv2(placement):
+    """fill_poly against cv2.drawContours(FILLED) and cv2.fillPoly: every
+    pixel, 1 and 3 channels, 300 polygons an image placement."""
+    rng = np.random.default_rng(["inside", "edges", "across", "far", "crossing"].index(placement))
+    for t in range(300):
+        h, w = int(rng.integers(1, 90)), int(rng.integers(1, 90))
+        p, cn = random_polygon(rng, placement, h, w), 1 + 2 * (t % 2)
+        color = (7, 200, 31)[:cn]
+        want = cv2.drawContours(np.zeros((h, w, cn), np.uint8), [p], -1, color, cv2.FILLED)
+        got = image_ops.fill_poly(np.zeros((h, w, cn), np.uint8), p, color)
+        np.testing.assert_array_equal(got, want, err_msg=f"{(h, w)} {p.tolist()}")
+        np.testing.assert_array_equal(got, cv2.fillPoly(np.zeros((h, w, cn), np.uint8), [p], color))
+
+
 def test_rotation_matrix_equals_cv2():
     for a, s, c in [(7.3, 1.21, (0, 0)), (-45.0, 0.5, (10.0, -3.5)), (0.0, 1.0, (0, 0))]:
         np.testing.assert_array_equal(rotation_matrix(a, s, c), cv2.getRotationMatrix2D(c, a, s))

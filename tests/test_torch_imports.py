@@ -29,6 +29,10 @@ EXPORT_MODULES = ("export.py", "models/backend.py", "models/onnx_native.py", "mo
 PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py")
 UTILITY_MODULES = ("utils/env.py", "utils/checks.py", "utils/profiling.py", "utils/plots.py")
 PLOT_LIBRARIES = {"matplotlib", "seaborn", "pandas"}  # optional: imported inside the functions that draw
+HOST_MODULES = ("native/__init__.py", "utils/downloads.py", "data/converters.py", "utils/loggers/__init__.py",
+                "utils/loggers/wandb_utils.py", "utils/loggers/clearml_utils.py", "utils/loggers/clearml_hpo.py",
+                "utils/loggers/comet_utils.py")
+SDKS = ("wandb", "clearml", "comet_ml", "tensorboard", "tensorflow")  # optional: imported inside their sinks
 
 
 def imported_roots(path):
@@ -77,6 +81,55 @@ def test_utility_import_loads_no_jax_cv2_pil_or_plot_library():
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('cv2', 'PIL', 'matplotlib', 'seaborn', "
             "'pandas')); assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_walk_covers_the_host_modules():
+    walked = {str(p.relative_to(ROOT / "yolov3_tpu_torch")) for p in PORT_FILES[:-1]}
+    assert set(HOST_MODULES) <= walked
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_level_sdk_imports(path):
+    tree = ast.parse(path.read_text(), str(path))
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    roots = {a.name.split(".")[0] for n in top if isinstance(n, ast.Import) for a in n.names}
+    roots |= {n.module.split(".")[0] for n in top if isinstance(n, ast.ImportFrom) and n.level == 0}
+    assert not roots & set(SDKS), f"{path.relative_to(ROOT)} imports {roots & set(SDKS)} at module level"
+
+
+def test_host_import_loads_no_jax_cv2_pil_or_sdk():
+    """The host modules, a JPEG written and the host NMS run, with no cv2, PIL or tracker SDK loaded."""
+    modules = ", ".join("yolov3_tpu_torch." + m[:-3].replace("/", ".").replace(".__init__", "")
+                        for m in HOST_MODULES)
+    _assert_import_loads_no_jax(modules)
+    code = (f"import sys, tempfile, numpy as np, {modules}; "
+            "from yolov3_tpu_torch.data import image_ops; from yolov3_tpu_torch.native import greedy_nms_batch; "
+            "image_ops.imwrite(tempfile.mktemp(suffix='.jpg'), np.zeros((9, 9, 3), np.uint8)); "
+            "b = np.zeros((1, 4, 4), np.float32); greedy_nms_batch(b, b, np.ones((1, 4), np.float32), "
+            "np.zeros((1, 4), np.float32)); "
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in ('cv2', 'PIL') + {SDKS!r}); "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_roadmap_items_cited_are_open():
+    """Every "ROADMAP.md queue 1 item N" in the port (code, comments and
+    messages, chip_smoke.py too) names an item that ROADMAP.md's queue 1
+    still lists under that number."""
+    import re
+
+    roadmap = (ROOT / "ROADMAP.md").read_text()
+    queue = roadmap.split("### 1. Modules to port", 1)[1].split("\n### 2.", 1)[0]
+    open_items = {int(n) for n in re.findall(r"^(\d+)\. \*\*", queue, flags=re.M)}
+    assert open_items, "ROADMAP.md queue 1 lists no open item"
+    cited = {}
+    for path in PORT_FILES:
+        text = re.sub(r'"\s*\n\s*f?"', "", path.read_text())  # join implicitly concatenated string literals
+        for n in re.findall(r"ROADMAP\.md\s+queue\s+1,?\s+item\s+(\d+)", re.sub(r"\s+", " ", text)):
+            cited.setdefault(int(n), []).append(str(path.relative_to(ROOT)))
+    assert cited, "no citation found"
+    stale = {n: files for n, files in cited.items() if n not in open_items}
+    assert not stale, f"cited items {stale} are not open in ROADMAP.md queue 1 (open: {sorted(open_items)})"
 
 
 def test_walk_covers_the_train_modules():

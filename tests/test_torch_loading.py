@@ -10,8 +10,10 @@ The port's `load_weights` gives the decoded forward of the JAX package's
 tree (its stub test `hasattr(obj, "float")` is false for a stub, so it
 takes the stub for a dict and fails; ROADMAP.md queue 3): for that form the
 JAX side loads the same tensors as a state dict. A `.pt` whose tensors fit nowhere raises in both; a
-missing `.pt` raises in the port without any download (the JAX package
-would try one, so it is not called with a missing file). Both packages'
+missing `.pt` goes to `attempt_download` in both, which here is pointed at
+a `file://` release URL that does not exist, so no host is contacted and
+both raise FileNotFoundError (the JAX loader is not called with a missing
+file: its release URL is fixed). Both packages'
 `DetectionModel.from_config()` without a cfg build yolov3-tiny."""
 
 import sys
@@ -132,9 +134,18 @@ def test_mismatched_pt_raises_in_both(tmp_path):
         jax_load_weights(str(pt))
 
 
-def test_missing_pt_is_not_downloaded(tmp_path):
-    with pytest.raises(FileNotFoundError, match="never downloaded"):
+def test_missing_pt_is_not_downloaded(tmp_path, monkeypatch):
+    """A missing .pt is fetched from the release URL; offline (an unreachable URL) it raises, and leaves no file."""
+    from yolov3_tpu.utils.downloads import attempt_download as jax_attempt_download
+    from yolov3_tpu_torch.utils import downloads
+
+    release = (tmp_path / "no-release").as_uri()
+    monkeypatch.setattr(downloads, "RELEASE_URL", release)
+    with pytest.raises(FileNotFoundError, match="yolov3.pt not found locally and download failed"):
         load_weights(tmp_path / "yolov3.pt", device="cpu")
+    with pytest.raises(FileNotFoundError, match="yolov3.pt not found locally and download failed"):
+        jax_attempt_download(tmp_path / "jax" / "yolov3.pt", repo_url=release)
+    assert not (tmp_path / "yolov3.pt").exists() and not (tmp_path / "jax" / "yolov3.pt").exists()
 
 
 def test_checkpoint_dir_and_cfg(tmp_path):

@@ -122,12 +122,16 @@ def test_non_max_suppression_inputs():
 
 
 def test_non_max_suppression_engines():
+    """"native" (and "auto" on numpy) is the host C++ loop, "xla" batched_nms:
+    the same rows, equal to JAX's native engine; an unknown engine raises."""
     pred = make_predictions(seed=5, n=50, n_valid=(10, 10))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        non_max_suppression(pred, engine="native", device="cpu")
     with pytest.raises(ValueError, match="engine"):
         non_max_suppression(pred, engine="tensorrt", device="cpu")
     xla = non_max_suppression(pred, engine="xla", device="cpu")
     auto = non_max_suppression(pred, device="cpu")
-    for a, b in zip(xla, auto):
+    native = non_max_suppression(pred, engine="native")
+    jax_native = jax_non_max_suppression(pred, engine="native")
+    for a, b, c, d in zip(xla, auto, native, jax_native):
         np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(b, c)
+        np.testing.assert_array_equal(c, d)

@@ -5,13 +5,14 @@ seeded inputs.
   the JAX mosaic exactly; with boxes and labels, the pixels that differ from
   the JAX mosaic by more than 64 levels in any channel are at most 2% of
   the pixels either draws on (the Annotator's bar, tests/test_torch_plots.py;
-  the JAX package draws with cv2, the port with its atlas). The port writes
-  PNG where the JAX package writes JPEG.
+  the JAX package draws with cv2, the port with its atlas). Both write
+  JPEG, the port through its own encoder: equal mosaics give equal files,
+  and the port's file is cv2's encoding of its mosaic, byte for byte.
 - every matplotlib plot: the arrays each draws (every Axes.plot, scatter,
   hist, hist2d, imshow, bar and pcolormesh call, recorded) equal the JAX
-  function's exactly, and the files it writes are the JAX function's, with
-  .png for .jpg (the correlogram). Pixels are not compared: both draw
-  through the same matplotlib, and only the file format differs.
+  function's exactly, and the files it writes are the JAX function's (the
+  correlogram's .jpg too, encoded in-tree from the rendered figure). Pixels
+  are not compared: both draw through the same matplotlib.
 - without matplotlib (or seaborn / pandas for the correlogram) each plot
   logs one warning, writes nothing and returns None; nothing is installed.
 """
@@ -72,9 +73,9 @@ def both(tmp_path, jax_fn, port_fn):
     return out
 
 
-def assert_same(got, want, renamed=None):
+def assert_same(got, want):
     (g_calls, g_files), (w_calls, w_files) = got, want
-    assert g_files == [(renamed or {}).get(f, f) for f in w_files]
+    assert g_files == w_files
     assert g_files, "nothing written"
     assert [n for n, _ in g_calls] == [n for n, _ in w_calls] and g_calls
     for (name, ga), (_, wa) in zip(g_calls, w_calls):
@@ -108,10 +109,10 @@ def test_plot_images_matches_jax(tmp_path, with_masks):
     print(f"{far.sum()} of {drawn.sum()} drawn pixels off by > 64 ({far.sum() / drawn.sum():.4%})")
     assert drawn.sum() > 500 and far.sum() <= 0.02 * drawn.sum()
     assert (got[~drawn] == base[~drawn]).all()
-    assert (tmp_path / "port.png").exists() and not (tmp_path / "port.jpg").exists()
-    from yolov3_tpu_torch.data.image_ops import imread
+    import cv2
 
-    np.testing.assert_array_equal(imread(tmp_path / "port.png"), got)
+    assert (tmp_path / "base.jpg").read_bytes() == (tmp_path / "jax_base.jpg").read_bytes()
+    assert (tmp_path / "port.jpg").read_bytes() == cv2.imencode(".jpg", got)[1].tobytes()
 
 
 def test_plot_results_matches_jax(tmp_path):
@@ -184,7 +185,7 @@ def test_labels_correlogram_matches_jax(tmp_path):
     labels = seeded_labels(120)
     got, want = reversed(both(tmp_path, lambda d: jax_plots.plot_labels_correlogram(labels, d),
                               lambda d: plots.plot_labels_correlogram(labels, d)))
-    assert_same(got, want, renamed={"labels_correlogram.jpg": "labels_correlogram.png"})
+    assert_same(got, want)
     assert plots.plot_labels_correlogram(labels[:0], tmp_path) is None
 
 
@@ -226,7 +227,7 @@ def test_plots_without_their_packages_log_and_write_nothing(tmp_path, monkeypatc
     monkeypatch.setitem(sys.modules, "matplotlib", None)
     monkeypatch.setitem(sys.modules, "matplotlib.pyplot", None)
     (px, py, p_curve, r_curve, f1_curve), ap, _ = curves_and_ap()
-    Loggers(tmp_path).on_fit_epoch_end(np.zeros(13), 0)
+    Loggers(tmp_path, include=("csv",)).on_fit_epoch_end(np.zeros(13), 0)
     calls = [lambda: plots.plot_results(tmp_path / "results.csv"),
              lambda: plots.plot_pr_curve(px, py, ap, tmp_path / "PR_curve.png"),
              lambda: plots.plot_mc_curve(px, f1_curve, tmp_path / "F1_curve.png"),

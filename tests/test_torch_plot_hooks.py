@@ -36,7 +36,7 @@ MICRO_CFG = {
 HYP = {"lr0": 0.01, "lrf": 0.1, "momentum": 0.9, "weight_decay": 0.0, "warmup_epochs": 0.0, "box": 0.05,
        "obj": 1.0, "cls": 0.5, "mosaic": 0.0, "fliplr": 0.0, "hsv_h": 0, "hsv_s": 0, "hsv_v": 0,
        "translate": 0.0, "scale": 0.0, "anchor_t": 4.0}
-TRAIN_PLOTS = ("labels.png", "labels_correlogram.png", "train_batch0.png", "train_batch1.png", "results.png",
+TRAIN_PLOTS = ("labels.png", "labels_correlogram.jpg", "train_batch0.jpg", "train_batch1.jpg", "results.png",
                "confusion_matrix.png")
 
 
@@ -61,7 +61,7 @@ def test_training_emits_logger_artifacts(data, tmp_path):
     train(data=data, cfg=MICRO_CFG, epochs=2, batch_size=4, imgsz=64, save_dir=sd, hyp=HYP, noautoanchor=True,
           workers=1, device="cpu")
     produced = {p.name for p in sd.iterdir()}
-    for expected in (*TRAIN_PLOTS, "results.csv", "val_batch0_labels.png", "val_batch0_pred.png"):
+    for expected in (*TRAIN_PLOTS, "results.csv", "val_batch0_labels.jpg", "val_batch0_pred.jpg"):
         assert expected in produced, f"{expected} missing; got {sorted(produced)}"
 
 
@@ -73,16 +73,16 @@ def test_train_rect_noplots_label_smoothing(data, tmp_path):
           noautoanchor=True, rect=True, noplots=True, label_smoothing=0.05, sync_bn=True, workers=1, device="cpu")
     produced = {p.name for p in sd.iterdir()}
     assert "results.csv" in produced
-    assert not produced & {*TRAIN_PLOTS, "val_batch0_labels.png"}, f"--noplots wrote {sorted(produced)}"
+    assert not produced & {*TRAIN_PLOTS, "val_batch0_labels.jpg"}, f"--noplots wrote {sorted(produced)}"
     assert yaml.safe_load((sd / "hyp.yaml").read_text())["label_smoothing"] == 0.05
 
 
 def test_val_batch_mosaics(data, tmp_path):
-    """plots=True writes val_batch{i}_labels / _pred.png (reference val.py:417-419)."""
+    """plots=True writes val_batch{i}_labels / _pred.jpg (reference val.py:417-419)."""
     model = DetectionModel.from_config(MICRO_CFG, device="cpu")
     validator.run(data, model=model, batch_size=4, imgsz=64, rect=False, plots=True, save_dir=tmp_path)
     got = {p.name for p in tmp_path.glob("val_batch*")}
-    assert {"val_batch0_labels.png", "val_batch0_pred.png", "val_batch1_labels.png", "val_batch1_pred.png"} <= got
+    assert {"val_batch0_labels.jpg", "val_batch0_pred.jpg", "val_batch1_labels.jpg", "val_batch1_pred.jpg"} <= got
 
 
 @pytest.fixture(scope="module")

@@ -50,7 +50,10 @@ def test_save_one_box_equals_jax(tmp_path):
             want = jax_plots.save_one_box(box, im, square=square, BGR=bgr, save=False)
             np.testing.assert_array_equal(got, want)
     crop = plots.save_one_box(box, im, file=tmp_path / "crops" / "a.jpg")
-    np.testing.assert_array_equal(image_ops.imread(tmp_path / "crops" / "a.png"), crop)  # written as PNG
+    jax_plots.save_one_box(box, im, file=tmp_path / "jax" / "a.jpg")
+    assert (tmp_path / "crops" / "a.jpg").read_bytes() == (tmp_path / "jax" / "a.jpg").read_bytes()  # cv2's JPEG
+    plots.save_one_box(box, im, file=tmp_path / "crops" / "a.png")
+    np.testing.assert_array_equal(image_ops.imread(tmp_path / "crops" / "a.png"), crop)
 
 
 @pytest.mark.parametrize("lw", [1, 2, 3, 21, 32])  # 21 and 32: the default widths at 48 and 108 MP

@@ -136,7 +136,7 @@ def test_pipeline_matches_jax(served, fast, monkeypatch):
     run_pipelines(served, fast)
 
 
-def test_full_path_alone_and_options(served):
+def test_full_path_alone_and_options(served, tmp_path, monkeypatch):
     _, model, frames, _ = served
     full = build_batched_infer(model, fast=False)
     assert not hasattr(full, "full_fn")
@@ -162,8 +162,13 @@ def test_full_path_alone_and_options(served):
     np.testing.assert_array_equal(sharded.numpy(), plain.numpy())
     np.testing.assert_array_equal(np.asarray(sharded_n), np.asarray(plain_n))
     assert build_pipeline(model, IMGSZ, max_batch=3, shard=mesh).batcher.buckets == [2, 4]
-    # a reference .pt loads through models/loading.py; a missing one is never downloaded
-    with pytest.raises(FileNotFoundError, match="never downloaded"):
+    # a reference .pt loads through models/loading.py; a missing one goes to attempt_download, which
+    # raises when the release URL is unreachable (here a file:// URL that does not exist: no host is asked)
+    from yolov3_tpu_torch.utils import downloads
+
+    monkeypatch.setattr(downloads, "RELEASE_URL", (tmp_path / "no-release").as_uri())
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError, match="yolov3.pt not found locally and download failed"):
         make_server("yolov3.pt", device="cpu")
 
 

@@ -116,8 +116,14 @@ def test_env_probes_and_unicode_paths(tmp_path, monkeypatch):
     assert env.imwrite(p, im)
     np.testing.assert_array_equal(env.imread(p), im)
     np.testing.assert_array_equal(env.imread(p), jax_env.imread(p))
-    with pytest.raises(NotImplementedError, match="JPEG encoder"):
-        env.imwrite(tmp_path / "a.jpg", im)
+    import cv2
+
+    assert env.imwrite(tmp_path / "a.jpg", im) and env.imwrite(tmp_path / "b.JPEG", im)
+    assert (tmp_path / "a.jpg").read_bytes() == cv2.imencode(".jpg", im)[1].tobytes()
+    assert (tmp_path / "b.JPEG").read_bytes() == (tmp_path / "a.jpg").read_bytes()
+    np.testing.assert_array_equal(env.imread(tmp_path / "a.jpg"), jax_env.imread(tmp_path / "a.jpg"))
+    with pytest.raises(ValueError, match="tif"):
+        env.imwrite(tmp_path / "a.tif", im)
 
     # the dataset reader takes non-ASCII image paths end to end
     root = tmp_path / "images" / "train"
@@ -211,9 +217,9 @@ def test_dataset_yaml_loads_as_in_jax(name, tmp_path, monkeypatch):
     monkeypatch.setattr(dataset_yaml, "DATASETS_DIR", datasets)
     monkeypatch.setattr(jax_dataset_yaml, "DATASETS_DIR", datasets)
 
-    with pytest.raises(NotImplementedError, match="download recipes"):
-        dataset_yaml.check_dataset(str(port_yaml))
-    with pytest.raises(FileNotFoundError):
+    with pytest.raises(FileNotFoundError, match="no download recipe"):  # the recipe needs autodownload
+        dataset_yaml.check_dataset(str(port_yaml), autodownload=False)
+    with pytest.raises(FileNotFoundError, match="no download recipe"):
         jax_dataset_yaml.check_dataset(str(port_yaml), autodownload=False)
 
     d = yaml.safe_load(port_yaml.read_text())

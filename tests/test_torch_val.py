@@ -469,13 +469,13 @@ def test_val_plots_match_jax(val_runs, tmp_path, monkeypatch):
         run(val_runs["data"], model=m, batch_size=2, imgsz=IMGSZ, dataloader=val_runs["batches"], plots=True,
             save_dir=tmp_path / label)
         files[label] = sorted(p.name for p in (tmp_path / label).iterdir())
-    assert files["port"] == sorted(f.replace(".jpg", ".png") for f in files["jax"])
-    assert {"PR_curve.png", "F1_curve.png", "confusion_matrix.png", "val_batch2_pred.png"} <= set(files["port"])
+    assert files["port"] == files["jax"]
+    assert {"PR_curve.png", "F1_curve.png", "confusion_matrix.png", "val_batch2_pred.jpg"} <= set(files["port"])
     got, want = calls["port"], calls["jax"]
     assert [c[0] for c in got] == [c[0] for c in want]
     for (name, g, gk), (_, w, wk) in zip(got, want):
         if name == "plot_images":
-            assert Path(gk["fname"]).name == Path(wk["fname"]).name.replace(".jpg", ".png")
+            assert Path(gk["fname"]).name == Path(wk["fname"]).name
             np.testing.assert_array_equal(g[0], w[0])
             np.testing.assert_array_equal(gk["masks"], wk["masks"])
             assert gk["names"] == wk["names"]

@@ -16,9 +16,10 @@ Per image: decode (data/image_ops.py, JPEG included) -> letterbox -> the
 BN-folded forward (bf16 on the card, float32 on the CPU; --half forces
 bf16) -> decode -> `batched_nms` (the NMS kernel on the card, max_nms
 8192) -> boxes scaled to the image -> Annotator -> the annotated image
-(`<stem>.png`), labels (`labels/<stem>.txt`) and crops
-(`crops/<class>/<stem>.png`). The JAX package writes `<name>.jpg`; the port
-writes PNG until it has a JPEG encoder (ROADMAP.md queue 1). `--visualize`
+(`<name>`, the source's own name and format; a source that is neither JPEG
+nor PNG is written as `<stem>.jpg`), labels (`labels/<stem>.txt`) and crops
+(`crops/<class>/<stem>.jpg`), as the JAX package writes them, through the
+in-tree JPEG encoder. `--visualize`
 writes each layer's feature maps as `<stem>/stage{i}_{op}_features.png`
 (utils/plots.feature_visualization; the reference's names).
 """
@@ -211,16 +212,17 @@ def run(
                         label = None if hide_labels else (names.get(c, c) if hide_conf else f"{names.get(c, c)} {conf:.2f}")
                         annotator.box_label(xyxy, label, color=colors(c, True))
                     if save_crop:
-                        save_one_box(xyxy, im0, file=save_dir / "crops" / str(names.get(c, c)) / f"{p.stem}.png")
+                        save_one_box(xyxy, im0, file=save_dir / "crops" / str(names.get(c, c)) / f"{p.stem}.jpg")
 
             im0 = annotator.result()
             if view_img:
                 LOGGER.warning("--view-img needs a display window, which the port does not open; use the saved images")
             if save_img:
                 if dataset.mode == "image":
-                    from yolov3_tpu_torch.data.image_ops import imwrite_png
+                    from yolov3_tpu_torch.data import image_ops
 
-                    imwrite_png(Path(save_path).with_suffix(".png"), im0)
+                    out = Path(save_path)
+                    image_ops.imwrite(out if out.suffix.lower() in image_ops.WRITERS else out.with_suffix(".jpg"), im0)
                 else:  # video / stream writer (cv2, present when the source could be read)
                     import cv2
 

@@ -11,9 +11,11 @@ with its rank (train.loop.train; parallel/mesh.py):
     python -m yolov3_tpu_torch.cli.train --data coco128.yaml --coordinator host:port --num-processes N --process-id i
 
 `--batch-size` is per process; BatchNorm statistics are the global batch's,
-so `--sync-bn` is accepted and changes nothing. Not ported, and raising:
-`--entity` / `--upload_dataset` and a Comet resume (ROADMAP.md queue 1 item
-7), `--s2d-stem` (item 9). The run writes its plots unless `--noplots`
+so `--sync-bn` is accepted and changes nothing. `--resume comet://<path>`
+restores the experiment's checkpoint and options through Comet
+(utils/loggers/comet_utils.py); `--entity` and `--upload_dataset` go to
+W&B. Not ported, and raising: `--s2d-stem` (ROADMAP.md queue 1 item 6).
+The run writes its plots unless `--noplots`
 (utils/plots.py; each needs matplotlib, and is skipped with one log line
 on a host without it).
 """
@@ -62,9 +64,9 @@ def parse_opt(known=False, argv=None):
     parser.add_argument("--patience", type=int, default=100)
     parser.add_argument("--project", default="runs/train")
     parser.add_argument("--name", default="exp")
-    parser.add_argument("--entity", default=None, help="W&B entity (team/user; not ported: raises)")
+    parser.add_argument("--entity", default=None, help="W&B entity (team/user)")
     parser.add_argument("--upload_dataset", nargs="?", const=True, default=False,
-                        help='upload dataset as a tracker artifact (not ported: raises)')
+                        help='upload dataset as a tracker artifact ("val" = that split only)')
     parser.add_argument("--bbox_interval", type=int, default=-1,
                         help="bbox-image logging interval in epochs (-1: epochs//10)")
     parser.add_argument("--exist-ok", action="store_true")
@@ -101,7 +103,16 @@ def _main(opt, device):
     print_args(vars(opt))
     save_dir = None
     if isinstance(opt.resume, str) and opt.resume.startswith("comet://"):
-        raise NotImplementedError("a Comet resume is not ported yet (ROADMAP.md queue 1 item 7)")
+        # the experiment's checkpoint and saved options, through the Comet API (reference train.py:642)
+        from yolov3_tpu_torch.utils.loggers.comet_utils import check_comet_resume
+
+        restored = check_comet_resume(opt.resume)
+        assert restored and restored["weights"], f"comet resume found no checkpoint: {opt.resume}"
+        opt.weights = str(restored["weights"])
+        for k, v in (restored["opt"] or {}).items():
+            if hasattr(opt, k) and k not in ("resume", "weights"):
+                setattr(opt, k, v)
+        opt.resume = False
     if opt.resume:  # the run dir to resume (reference train.py:642-654)
         if isinstance(opt.resume, str) and Path(opt.resume).exists():
             save_dir = Path(opt.resume)

@@ -17,6 +17,13 @@
 //   hsv2bgr_u8           [0, 180)
 //   png_unfilter         PNG row filters 0-4 (the IDAT stream is inflated by
 //   png_filter_sub       Python's zlib), and the Sub filter of the encoder
+//   jpeg_info            JPEG decoding and encoding, as libjpeg-turbo does
+//   jpeg_decode_bgr      them for cv2.imread / cv2.imencode(".jpg")
+//   jpeg_encode_bgr
+//   greedy_nms_batch     the host greedy NMS of yolov3_tpu/native
+//   fill_poly_u8         cv2.fillPoly / drawContours(FILLED), 8-connected
+//   blend_mask_u8        the Annotator's glyphs and boxes (utils/plots.py)
+//   draw_rect_stamp
 //
 // A plain C interface, loaded with ctypes (which releases the GIL for the
 // call). Built with -ffp-contract=off: a float step is fused where OpenCV
@@ -1376,6 +1383,579 @@ int jpeg_decode_bgr(const uint8_t* data, long size, uint8_t* out, char* err, int
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// JPEG encoding (cv2.imencode(".jpg", im) with OpenCV's defaults)
+// ---------------------------------------------------------------------------
+//
+// Writes the bytes libjpeg-turbo writes for cv2 with the defaults OpenCV
+// leaves in place: the JFIF APP0 header, the quality-scaled standard tables
+// (force_baseline), 4:2:0 sampling for colour and 1x1 for gray, the islow
+// forward DCT (jfdctint.c), rounded division by 8 * q (jcdctmgr.c), the
+// standard Huffman tables and no restart interval. The bytes depend on
+//   jccolor.c   BGR -> YCbCr in 16-bit fixed point, rounded (0.5 - eps for
+//               the chroma, so it never reaches 256)
+//   jcsample.c  h2v2_downsample: the mean of 2x2 with the bias 1, 2, 1, 2, ...
+//               along each output row
+//   jcprepct.c  the edges replicated to the block grid (right column, last
+//   jcsample.c  row), then the MCU's blocks past the image made as libjpeg
+//   jccoefct.c  makes them: zero AC and the DC of the block before
+// A 4-channel image is encoded from its first three channels, as cv2 does.
+
+namespace {
+
+const uint8_t kStdQuant[2][64] = {
+    {16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57,
+     69, 56, 14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64,
+     81, 104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99},
+    {17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99, 99, 99,
+     99, 99, 47, 66, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99}};
+
+// The standard Huffman tables (JPEG Annex K.3): DC luma, AC luma, DC chroma, AC chroma
+const uint8_t kDcBits[2][16] = {{0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+                                {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0}};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcBits[2][16] = {{0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d},
+                                {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77}};
+const uint8_t kAcVals[2][162] = {
+    {0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61, 0x07, 0x22, 0x71,
+     0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+     0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37,
+     0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+     0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
+     0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+     0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+     0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+     0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa},
+    {0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71, 0x13, 0x22,
+     0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+     0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36,
+     0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+     0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
+     0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+     0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
+     0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+     0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa}};
+
+struct HuffEnc {  // jchuff.c jpeg_make_c_derived_tbl: code and length by symbol
+  unsigned code[256];
+  int size[256];
+  HuffEnc(const uint8_t* bits, const uint8_t* vals) {
+    std::memset(size, 0, sizeof(size));
+    unsigned c = 0;
+    int p = 0;
+    for (int l = 1; l <= 16; ++l, c <<= 1)
+      for (int i = 0; i < bits[l - 1]; ++i, ++p, ++c) {
+        code[vals[p]] = c;
+        size[vals[p]] = l;
+      }
+  }
+};
+
+class BitWriter {  // big-endian bits, 0xFF stuffed with 0x00 (jchuff.c emit_bits)
+ public:
+  std::vector<uint8_t>& out;
+  explicit BitWriter(std::vector<uint8_t>& o) : out(o) {}
+  void put(unsigned bits, int n) {
+    acc_ = (acc_ << n) | (bits & ((1u << n) - 1));
+    nbits_ += n;
+    while (nbits_ >= 8) {
+      const uint8_t b = (uint8_t)(acc_ >> (nbits_ - 8));
+      out.push_back(b);
+      if (b == 0xFF) out.push_back(0);
+      nbits_ -= 8;
+    }
+  }
+  void flush() { put(0x7F, 7); }  // pad the last byte with ones (jchuff.c flush_bits)
+ private:
+  uint64_t acc_ = 0;
+  int nbits_ = 0;
+};
+
+// jfdctint.c jpeg_fdct_islow: the output is 8 times the orthonormal DCT
+void fdct_islow(int* d) {
+  constexpr int kConst = 13, kPass1 = 2;
+  auto descale = [](long x, int n) { return (int)((x + (1L << (n - 1))) >> n); };
+  for (int pass = 0; pass < 2; ++pass) {
+    const int step = pass ? 8 : 1, stride = pass ? 1 : 8;
+    const int odd_shift = pass ? kConst + kPass1 : kConst - kPass1;
+    for (int r = 0; r < 8; ++r) {
+      int* p = d + r * stride;
+      const long t0 = p[0] + p[7 * step], t7 = p[0] - p[7 * step], t1 = p[step] + p[6 * step],
+                 t6 = p[step] - p[6 * step], t2 = p[2 * step] + p[5 * step], t5 = p[2 * step] - p[5 * step],
+                 t3 = p[3 * step] + p[4 * step], t4 = p[3 * step] - p[4 * step];
+      const long t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
+      if (pass) {
+        p[0] = descale(t10 + t11, kPass1);
+        p[4 * step] = descale(t10 - t11, kPass1);
+      } else {
+        p[0] = (int)((t10 + t11) << kPass1);
+        p[4 * step] = (int)((t10 - t11) << kPass1);
+      }
+      long z1 = (t12 + t13) * 4433;
+      p[2 * step] = descale(z1 + t13 * 6270, odd_shift);
+      p[6 * step] = descale(z1 - t12 * 15137, odd_shift);
+      z1 = t4 + t7;
+      long z2 = t5 + t6, z3 = t4 + t6, z4 = t5 + t7;
+      const long z5 = (z3 + z4) * 9633;
+      const long a4 = t4 * 2446, a5 = t5 * 16819, a6 = t6 * 25172, a7 = t7 * 12299;
+      z1 *= -7373;
+      z2 *= -20995;
+      z3 = z3 * -16069 + z5;
+      z4 = z4 * -3196 + z5;
+      p[7 * step] = descale(a4 + z1 + z3, odd_shift);
+      p[5 * step] = descale(a5 + z2 + z4, odd_shift);
+      p[3 * step] = descale(a6 + z2 + z3, odd_shift);
+      p[step] = descale(a7 + z1 + z4, odd_shift);
+    }
+  }
+}
+
+// One component as libjpeg sees it: the plane padded to whole blocks
+struct EncComp {
+  int id, h, v, tq;
+  int bw, bh;  // width_in_blocks, height_in_blocks
+  std::vector<uint8_t> plane;  // (bh * 8, bw * 8)
+  uint8_t at(int y, int x) const { return plane[(size_t)y * bw * 8 + x]; }
+};
+
+// pad a (rows, cols) plane to (prows, pcols) by replicating its last column and row
+std::vector<uint8_t> pad_edges(const std::vector<uint8_t>& src, int rows, int cols, int prows, int pcols) {
+  std::vector<uint8_t> out((size_t)prows * pcols);
+  for (int y = 0; y < prows; ++y) {
+    const uint8_t* s = &src[(size_t)std::min(y, rows - 1) * cols];
+    uint8_t* o = &out[(size_t)y * pcols];
+    std::memcpy(o, s, cols);
+    std::memset(o + cols, s[cols - 1], pcols - cols);
+  }
+  return out;
+}
+
+// quantised block (natural order) of component c at block (by, bx)
+void quantize_block(const EncComp& c, int by, int bx, const int* divisor, int* out) {
+  int d[64];
+  for (int y = 0; y < 8; ++y)
+    for (int x = 0; x < 8; ++x) d[y * 8 + x] = (int)c.at(by * 8 + y, bx * 8 + x) - 128;
+  fdct_islow(d);
+  for (int i = 0; i < 64; ++i) {
+    const int q = divisor[i];
+    const int a = (std::abs(d[i]) + (q >> 1)) / q;
+    out[i] = d[i] < 0 ? -a : a;
+  }
+}
+
+void encode_block(BitWriter& bw, const int* blk, int& last_dc, const HuffEnc& dc, const HuffEnc& ac) {
+  auto magnitude = [](int v, unsigned& bits) {
+    int a = v < 0 ? -v : v, n = 0;
+    bits = (unsigned)(v < 0 ? v - 1 : v);
+    while (a) {
+      ++n;
+      a >>= 1;
+    }
+    return n;
+  };
+  unsigned bits;
+  int n = magnitude(blk[0] - last_dc, bits);
+  last_dc = blk[0];
+  bw.put(dc.code[n], dc.size[n]);
+  if (n) bw.put(bits, n);
+  int run = 0;
+  for (int k = 1; k < 64; ++k) {
+    const int v = blk[kNatural[k]];
+    if (!v) {
+      ++run;
+      continue;
+    }
+    for (; run > 15; run -= 16) bw.put(ac.code[0xF0], ac.size[0xF0]);
+    n = magnitude(v, bits);
+    const int sym = (run << 4) + n;
+    bw.put(ac.code[sym], ac.size[sym]);
+    bw.put(bits, n);
+    run = 0;
+  }
+  if (run) bw.put(ac.code[0], ac.size[0]);
+}
+
+void put16(std::vector<uint8_t>& o, int v) {
+  o.push_back((uint8_t)(v >> 8));
+  o.push_back((uint8_t)v);
+}
+
+std::vector<uint8_t> jpeg_encode(const uint8_t* src, int H, int W, int cn, int quality) {
+  const int ncomp = cn == 1 ? 1 : 3;
+  // jpeg_quality_scaling, jpeg_add_quant_table(force_baseline = TRUE)
+  quality = std::min(std::max(quality, 1), 100);
+  const int scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
+  int qt[2][64], divisor[2][64];
+  for (int t = 0; t < 2; ++t)
+    for (int i = 0; i < 64; ++i) {
+      qt[t][i] = std::min(std::max((kStdQuant[t][i] * scale + 50) / 100, 1), 255);
+      divisor[t][i] = qt[t][i] << 3;
+    }
+
+  std::vector<EncComp> comps(ncomp);
+  const size_t np = (size_t)H * W;
+  if (ncomp == 1) {
+    comps[0] = {1, 1, 1, 0, (W + 7) / 8, (H + 7) / 8, {}};
+    comps[0].plane = pad_edges(std::vector<uint8_t>(src, src + np), H, W, comps[0].bh * 8, comps[0].bw * 8);
+  } else {
+    // jccolor.c rgb_ycc_convert: FIX(x) = x * 2^16 rounded; Y rounds, Cb and Cr round with 0.5 - 2^-16
+    constexpr long kYr = 19595, kYg = 38470, kYb = 7471, kCbR = 11059, kCbG = 21709, kHalf = 32768;
+    constexpr long kCrG = 27439, kCrB = 5329, kCbCr = (128L << 16) + kHalf - 1;
+    std::vector<uint8_t> Y(np), Cb(np), Cr(np);
+    for (size_t p = 0; p < np; ++p) {
+      const long b = src[p * cn], g = src[p * cn + 1], r = src[p * cn + 2];
+      Y[p] = (uint8_t)((kYr * r + kYg * g + kYb * b + kHalf) >> 16);
+      Cb[p] = (uint8_t)((-kCbR * r - kCbG * g + (b << 15) + kCbCr) >> 16);
+      Cr[p] = (uint8_t)(((r << 15) - kCrG * g - kCrB * b + kCbCr) >> 16);
+    }
+    comps[0] = {1, 2, 2, 0, (W + 7) / 8, (H + 7) / 8, {}};
+    comps[0].plane = pad_edges(Y, H, W, comps[0].bh * 8, comps[0].bw * 8);
+    // jcsample.c h2v2_downsample over the input padded to whole blocks of the chroma grid
+    const int cw = (W + 1) / 2, ch = (H + 1) / 2, bw = (cw + 7) / 8, bh = (ch + 7) / 8;
+    for (int i = 1; i < 3; ++i) {
+      const std::vector<uint8_t> full = pad_edges(i == 1 ? Cb : Cr, H, W, ch * 2, bw * 16);
+      std::vector<uint8_t> down((size_t)ch * bw * 8);
+      for (int y = 0; y < ch; ++y) {
+        const uint8_t *r0 = &full[(size_t)2 * y * bw * 16], *r1 = r0 + bw * 16;
+        int bias = 1;
+        for (int x = 0; x < bw * 8; ++x, bias ^= 3)
+          down[(size_t)y * bw * 8 + x] = (uint8_t)((r0[2 * x] + r0[2 * x + 1] + r1[2 * x] + r1[2 * x + 1] + bias) >> 2);
+      }
+      comps[i] = {i + 1, 1, 1, 1, bw, bh, pad_edges(down, ch, bw * 8, bh * 8, bw * 8)};
+    }
+  }
+
+  std::vector<uint8_t> o;
+  o.reserve(np * ncomp / 4 + 1024);
+  const uint8_t jfif[] = {0xFF, 0xD8, 0xFF, 0xE0, 0, 16, 'J', 'F', 'I', 'F', 0, 1, 1, 0, 0, 1, 0, 1, 0, 0};
+  o.insert(o.end(), jfif, jfif + sizeof(jfif));
+  for (int t = 0; t < (ncomp == 1 ? 1 : 2); ++t) {  // DQT, one marker a table, zigzag order
+    put16(o, 0xFFDB);
+    put16(o, 67);
+    o.push_back((uint8_t)t);
+    for (int k = 0; k < 64; ++k) o.push_back((uint8_t)qt[t][kNatural[k]]);
+  }
+  put16(o, 0xFFC0);  // SOF0
+  put16(o, 8 + 3 * ncomp);
+  o.push_back(8);
+  put16(o, H);
+  put16(o, W);
+  o.push_back((uint8_t)ncomp);
+  for (const EncComp& c : comps) {
+    o.push_back((uint8_t)c.id);
+    o.push_back((uint8_t)(c.h << 4 | c.v));
+    o.push_back((uint8_t)c.tq);
+  }
+  for (int t = 0; t < (ncomp == 1 ? 1 : 2); ++t)  // DHT: DC then AC of each table
+    for (int cls = 0; cls < 2; ++cls) {
+      const uint8_t* bits = cls ? kAcBits[t] : kDcBits[t];
+      const uint8_t* vals = cls ? kAcVals[t] : kDcVals;
+      int nv = 0;
+      for (int l = 0; l < 16; ++l) nv += bits[l];
+      put16(o, 0xFFC4);
+      put16(o, 19 + nv);
+      o.push_back((uint8_t)(cls << 4 | t));
+      o.insert(o.end(), bits, bits + 16);
+      o.insert(o.end(), vals, vals + nv);
+    }
+  put16(o, 0xFFDA);  // SOS
+  put16(o, 6 + 2 * ncomp);
+  o.push_back((uint8_t)ncomp);
+  for (const EncComp& c : comps) {
+    o.push_back((uint8_t)c.id);
+    o.push_back((uint8_t)(c.tq << 4 | c.tq));
+  }
+  o.push_back(0);
+  o.push_back(63);
+  o.push_back(0);
+
+  const HuffEnc dc[2] = {{kDcBits[0], kDcVals}, {kDcBits[1], kDcVals}};
+  const HuffEnc ac[2] = {{kAcBits[0], kAcVals[0]}, {kAcBits[1], kAcVals[1]}};
+  BitWriter bw(o);
+  int last_dc[3] = {0, 0, 0}, blk[64], prev[64];
+  const int hmax = comps[0].h, vmax = comps[0].v;
+  const int mcu_cols = (W + 8 * hmax - 1) / (8 * hmax), mcu_rows = (H + 8 * vmax - 1) / (8 * vmax);
+  for (int my = 0; my < mcu_rows; ++my)
+    for (int mx = 0; mx < mcu_cols; ++mx)
+      for (int ci = 0; ci < ncomp; ++ci) {
+        const EncComp& c = comps[ci];
+        bool any = false;
+        for (int y = 0; y < c.v; ++y)
+          for (int x = 0; x < c.h; ++x) {
+            const int by = my * c.v + y, bx = mx * c.h + x;
+            if (by < c.bh && bx < c.bw) {
+              quantize_block(c, by, bx, divisor[c.tq], blk);
+            } else {  // jccoefct.c dummy block: zero AC, the DC of the block before
+              const int dcv = any ? prev[0] : 0;
+              std::memset(blk, 0, sizeof(blk));
+              blk[0] = dcv;
+            }
+            encode_block(bw, blk, last_dc[ci], dc[c.tq], ac[c.tq]);
+            std::memcpy(prev, blk, sizeof(blk));
+            any = true;
+          }
+      }
+  bw.flush();
+  put16(o, 0xFFD9);
+  return o;
+}
+
+}  // namespace
+
+// Encode a BGR (h, w, cn) image, cn 1, 3 or 4, as cv2.imencode(".jpg") does at
+// `quality`, into `out` of `cap` bytes. Returns the length of the JPEG, or -1
+// with the reason in err.
+long jpeg_encode_bgr(const uint8_t* src, int h, int w, int cn, int quality, uint8_t* out, long cap, char* err,
+                     int errlen) {
+  try {
+    if (h < 1 || w < 1 || h > 65535 || w > 65535) jfail("JPEG images are 1 to 65535 pixels a side");
+    if (cn != 1 && cn != 3 && cn != 4) jfail("JPEG encodes 1, 3 or 4 channels");
+    const std::vector<uint8_t> o = jpeg_encode(src, h, w, cn, quality);
+    if ((long)o.size() > cap) jfail("JPEG encode: the output buffer is too small");
+    std::memcpy(out, o.data(), o.size());
+    return (long)o.size();
+  } catch (const JpegError& e) {
+    std::snprintf(err, errlen, "%s", e.msg.c_str());
+    return -1;
+  } catch (const std::exception& e) {
+    std::snprintf(err, errlen, "JPEG encode failed: %s", e.what());
+    return -1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Greedy NMS on the host (yolov3_tpu/native/ops.cpp yolo_greedy_nms_batch)
+// ---------------------------------------------------------------------------
+//
+// Per image: candidates in descending score order (a stable sort, so equal
+// scores keep the lower index first, as lax.top_k and the NMS kernel),
+// stopping at the first score <= 0; a candidate is kept unless its IoU with
+// a kept box, on the class-offset boxes, exceeds iou_thres. Rows are
+// [x1, y1, x2, y2, conf, cls] of the raw boxes, zero-padded to max_det.
+
+void greedy_nms_batch(const float* boxes_off, const float* boxes, const float* scores, const float* cls, int bs,
+                      int n, float iou_thres, int max_det, float* out, int* n_valid) {
+  std::vector<int> order(n);
+  std::vector<float> kept((size_t)max_det * 5);  // kept offset boxes: x1 y1 x2 y2 area
+  for (int b = 0; b < bs; ++b) {
+    const float* bo = boxes_off + (size_t)b * n * 4;
+    const float* bx = boxes + (size_t)b * n * 4;
+    const float* sc = scores + (size_t)b * n;
+    float* o = out + (size_t)b * max_det * 6;
+    for (int i = 0; i < n; ++i) order[i] = i;
+    std::stable_sort(order.begin(), order.end(), [sc](int x, int y) { return sc[x] > sc[y]; });
+    std::memset(o, 0, sizeof(float) * 6 * (size_t)max_det);
+    int nk = 0;
+    for (int oi = 0; oi < n && nk < max_det; ++oi) {
+      const int i = order[oi];
+      if (sc[i] <= 0.0f) break;
+      const float* p = bo + (size_t)i * 4;
+      const float area = (p[2] - p[0]) * (p[3] - p[1]);
+      bool suppressed = false;
+      for (int k = 0; k < nk && !suppressed; ++k) {
+        const float* q = &kept[(size_t)k * 5];
+        const float iw = std::max(std::min(p[2], q[2]) - std::max(p[0], q[0]), 0.0f);
+        const float ih = std::max(std::min(p[3], q[3]) - std::max(p[1], q[1]), 0.0f);
+        const float inter = iw * ih;
+        suppressed = inter / (area + q[4] - inter + 1e-7f) > iou_thres;
+      }
+      if (suppressed) continue;
+      float* row = o + (size_t)nk * 6;
+      std::memcpy(row, bx + (size_t)i * 4, 4 * sizeof(float));
+      row[4] = sc[i];
+      row[5] = cls[(size_t)b * n + i];
+      std::memcpy(&kept[(size_t)nk * 5], p, 4 * sizeof(float));
+      kept[(size_t)nk * 5 + 4] = area;
+      ++nk;
+    }
+    n_valid[b] = nk;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Filled polygon (cv2.drawContours(..., cv2.FILLED) / cv2.fillPoly, LINE_8)
+// ---------------------------------------------------------------------------
+//
+// As OpenCV's drawing.cpp fills one contour with integer vertices: each edge
+// is drawn with the 8-connected Bresenham line of LineIterator (clipped to
+// the image), then the scanlines between the edges are filled with x in
+// 16.16 fixed point (CollectPolyEdges, FillEdgeCollection). cv2 5.0 fills a
+// row from floor(x_left) to ceil(x_right) - 1, steps x by the floor of the
+// edge's slope, and takes the slope of an edge that leaves the image from
+// its clipped segment. On the rows where that edge lies outside the image
+// (beyond its clipped segment) its x is the border it left by: 0 on the
+// left, w on the right. An edge clipped to one point keeps its rows at that
+// point's x. With these rules the fill equals cv2 5.0's pixel for pixel on
+// polygons inside, across and far outside the image
+// (tests/test_torch_data.py).
+
+namespace {
+
+constexpr int kXYShift = 16;
+constexpr int64_t kXYOne = int64_t(1) << kXYShift;
+
+// drawing.cpp clipLine: the segment clipped to [0, w) x [0, h); false when none of it is inside
+bool clip_line(int64_t w, int64_t h, int64_t& x1, int64_t& y1, int64_t& x2, int64_t& y2) {
+  const int64_t right = w - 1, bottom = h - 1;
+  if (w <= 0 || h <= 0) return false;
+  int c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8;
+  int c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8;
+  if ((c1 & c2) == 0 && (c1 | c2) != 0) {
+    int64_t a;
+    if (c1 & 12) {
+      a = c1 < 8 ? 0 : bottom;
+      x1 += (int64_t)((double)(a - y1) * (x2 - x1) / (y2 - y1));
+      y1 = a;
+      c1 = (x1 < 0) + (x1 > right) * 2;
+    }
+    if (c2 & 12) {
+      a = c2 < 8 ? 0 : bottom;
+      x2 += (int64_t)((double)(a - y2) * (x2 - x1) / (y2 - y1));
+      y2 = a;
+      c2 = (x2 < 0) + (x2 > right) * 2;
+    }
+    if ((c1 & c2) == 0 && (c1 | c2) != 0) {
+      if (c1) {
+        a = c1 == 1 ? 0 : right;
+        y1 += (int64_t)((double)(a - x1) * (y2 - y1) / (x2 - x1));
+        x1 = a;
+        c1 = 0;
+      }
+      if (c2) {
+        a = c2 == 1 ? 0 : right;
+        y2 += (int64_t)((double)(a - x2) * (y2 - y1) / (x2 - x1));
+        x2 = a;
+        c2 = 0;
+      }
+    }
+  }
+  return (c1 | c2) == 0;
+}
+
+void put_pixel(uint8_t* img, int w, int cn, int x, int y, const uint8_t* color) {
+  std::memcpy(img + ((size_t)y * w + x) * cn, color, cn);
+}
+
+// drawing.cpp Line with LineIterator(connectivity 8, leftToRight)
+void line8(uint8_t* img, int h, int w, int cn, int64_t x1, int64_t y1, int64_t x2, int64_t y2, const uint8_t* color) {
+  if (x1 < 0 || x1 >= w || x2 < 0 || x2 >= w || y1 < 0 || y1 >= h || y2 < 0 || y2 >= h)
+    if (!clip_line(w, h, x1, y1, x2, y2)) return;
+  int64_t dx = x2 - x1, dy = y2 - y1;
+  if (dx < 0) {
+    dx = -dx;
+    dy = -dy;
+    std::swap(x1, x2);
+    std::swap(y1, y2);
+  }
+  int sx = 1, sy = 1;
+  if (dy < 0) {
+    dy = -dy;
+    sy = -1;
+  }
+  const bool vert = dy > dx;
+  if (vert) std::swap(dx, dy);
+  // err, plusDelta, minusDelta of the 8-connected iterator; the major axis steps every pixel
+  int64_t err = dx - (dy + dy);
+  const int64_t plus = dx + dx, minus = -(dy + dy);
+  int64_t x = x1, y = y1;
+  for (int64_t i = 0; i <= dx; ++i) {
+    put_pixel(img, w, cn, (int)x, (int)y, color);
+    const bool step_minor = err < 0;
+    err += minus + (step_minor ? plus : 0);
+    if (vert) {
+      y += sy;
+      if (step_minor) x += sx;
+    } else {
+      x += sx;
+      if (step_minor) y += sy;
+    }
+  }
+}
+
+// an edge over rows [y0, y1): x at row y is x + (y - y0) * dx, except
+// above row cy0 or below row cy1 (its clipped segment), where it is x_above
+// or x_below when the edge leaves the image there (has_above, has_below)
+struct PolyEdge {
+  int y0, y1, cy0, cy1;
+  int64_t x, dx, x_above, x_below;
+  bool has_above, has_below;
+
+  int64_t at(int y) const {
+    if (y < cy0 && has_above) return x_above;
+    if (y > cy1 && has_below) return x_below;
+    return x + (int64_t)(y - y0) * dx;
+  }
+};
+
+}  // namespace
+
+// Fill the polygon of n integer vertices pts (x, y pairs) into the uint8
+// (h, w, cn) image with `color`, as cv2.fillPoly / cv2.drawContours(FILLED)
+// with LINE_8 and no shift.
+void fill_poly_u8(uint8_t* img, int h, int w, int cn, const int* pts, int n, const uint8_t* color) {
+  std::vector<PolyEdge> edges;
+  edges.reserve(n);
+  // the border an edge's end leaves the image by, in 16.16 fixed point
+  auto border = [w](int64_t x, int64_t& bx) {
+    bx = x < 0 ? 0 : (int64_t)w << kXYShift;
+    return x < 0 || x >= w;
+  };
+  int64_t px0 = pts[2 * (n - 1)], py0 = pts[2 * (n - 1) + 1];
+  for (int i = 0; i < n; ++i) {  // CollectPolyEdges
+    const int64_t px1 = pts[2 * i], py1 = pts[2 * i + 1];
+    line8(img, h, w, cn, px0, py0, px1, py1, color);
+    if (py0 != py1) {
+      int64_t c0x = px0, c0y = py0, c1x = px1, c1y = py1;
+      if (px0 < 0 || px0 >= w || px1 < 0 || px1 >= w || py0 < 0 || py0 >= h || py1 < 0 || py1 >= h) {
+        int64_t t0x = px0, t0y = py0, t1x = px1, t1y = py1;
+        clip_line(w, h, t0x, t0y, t1x, t1y);
+        c0x = t0x;
+        c1x = t1x;
+        if (t0y != t1y) {  // else the edge clipped to one point keeps its rows
+          c0y = t0y;
+          c1y = t1y;
+        }
+      }
+      c0x = (c0x << kXYShift) + (kXYOne >> 1);
+      c1x = (c1x << kXYShift) + (kXYOne >> 1);
+      PolyEdge e;
+      const int64_t num = c1x - c0x, den = c1y - c0y;  // the slope, rounded down
+      e.dx = num / den - ((num % den != 0) && ((num < 0) != (den < 0)));
+      const bool down = py0 < py1;
+      e.y0 = (int)std::min(py0, py1);
+      e.y1 = (int)std::max(py0, py1);
+      e.cy0 = (int)std::min(c0y, c1y);
+      e.cy1 = (int)std::max(c0y, c1y);
+      e.x = down ? c0x + (py0 - c0y) * e.dx : c1x + (py1 - c1y) * e.dx;
+      e.has_above = border(down ? px0 : px1, e.x_above);
+      e.has_below = border(down ? px1 : px0, e.x_below);
+      edges.push_back(e);
+    }
+    px0 = px1;
+    py0 = py1;
+  }
+  // FillEdgeCollection: each row fills between the 1st and 2nd, 3rd and 4th, ... edge by x
+  if (edges.size() < 2) return;
+  int y_min = INT_MAX, y_max = INT_MIN;
+  for (const PolyEdge& e : edges) {
+    y_min = std::min(y_min, e.y0);
+    y_max = std::max(y_max, e.y1);
+  }
+  std::vector<int64_t> xs;
+  for (int y = std::max(y_min, 0); y < std::min(y_max, h); ++y) {
+    xs.clear();
+    for (const PolyEdge& e : edges)
+      if (e.y0 <= y && y < e.y1) xs.push_back(e.at(y));
+    std::sort(xs.begin(), xs.end());
+    for (size_t k = 0; k + 1 < xs.size(); k += 2) {
+      const int x1 = (int)std::max<int64_t>(xs[k] >> kXYShift, 0);
+      const int x2 = (int)std::min<int64_t>((xs[k + 1] - 1) >> kXYShift, w - 1);
+      for (int x = x1; x <= x2; ++x) put_pixel(img, w, cn, x, y, color);
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Drawing for utils/plots.py Annotator (cv2.rectangle / cv2.putText)

@@ -168,12 +168,28 @@ def mixup(im, labels, im2, labels2, *, np_rng):
 
 
 def copy_paste(im, labels, segments, p=0.5, *, rng):
-    """Copy-paste of segment instances (reference augmentations.py:219-240).
-    The datasets here carry boxes, never segments, so the paste itself is
-    not ported: without segments the image and labels pass unchanged (the
-    JAX package's behaviour), with segments it raises."""
-    if len(segments):
-        raise NotImplementedError("copy_paste of segments is not ported: the datasets carry boxes only")
+    """Copy-paste of segment instances (reference augmentations.py:219-240,
+    arxiv 2012.07177): round(p * n) instances drawn by `rng.sample`, each
+    mirrored left-right, and pasted where its mirrored box overlaps every
+    label by less than 30%; a pasted instance adds its label and its
+    mirrored segment (a list, appended to). The paste mask is the mirrored
+    polygons filled as cv2.drawContours(FILLED) fills them
+    (image_ops.fill_poly). Returns (im, labels, segments); `im` is changed
+    in place."""
+    n = len(segments)
+    if p and n:
+        h, w, _ = im.shape
+        mask = np.zeros(im.shape, np.uint8)
+        for j in rng.sample(range(n), k=round(p * n)):
+            lb, seg = labels[j], segments[j]
+            box = w - lb[3], lb[2], w - lb[1], lb[4]
+            ioa = bbox_ioa(np.array(box, np.float32)[None], labels[:, 1:5].astype(np.float32))[0]
+            if (ioa < 0.30).all():
+                labels = np.concatenate((labels, [[lb[0], *box]]), 0)
+                segments.append(np.concatenate((w - seg[:, 0:1], seg[:, 1:2]), 1))
+                image_ops.fill_poly(mask, segments[-1].astype(np.int32), (1, 1, 1))
+        i = mask[:, ::-1].astype(bool)
+        im[i] = im[:, ::-1][i]
     return im, labels, segments
 
 

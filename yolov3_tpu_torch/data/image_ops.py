@@ -8,6 +8,9 @@ holds each op against cv2 and states the tolerance met.
 
 Images are numpy uint8 (H, W, 3) in BGR order, cv2's layout.
 
+Encoding: JPEG (`encode_jpeg`, byte-equal to cv2.imencode(".jpg") at
+quality 95, 4:2:0) and PNG (`encode_png`); `imwrite` picks by suffix.
+
 Decoding: JPEG (`decode_jpeg`: baseline and progressive Huffman, 8-bit,
 gray or YCbCr, as libjpeg-turbo decodes it for cv2), PNG (8- and 16-bit
 gray, gray+alpha, RGB, RGBA and palette; not interlaced) and BMP (24- and
@@ -114,6 +117,22 @@ def _warp(fn, im, m, mshape, size, border_value):
                                    m.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
                                    _ptr(_color(border_value, cn)))
     return dst
+
+
+def fill_poly(im, pts, color):
+    """Fill the polygon of integer vertices `pts` (n, 2) [x, y] into the uint8
+    image `im` in place, as cv2.fillPoly(im, [pts], color) and
+    cv2.drawContours(im, [pts], -1, color, cv2.FILLED) do (8-connected
+    edges, no anti-aliasing); returns `im`."""
+    if not (im.flags.c_contiguous and im.dtype == np.uint8):
+        raise ValueError("fill_poly draws into a C-contiguous uint8 image")
+    pts = np.ascontiguousarray(np.asarray(pts).reshape(-1, 2), dtype=np.int32)
+    cn = 1 if im.ndim == 2 else im.shape[2]
+    if len(pts):
+        host_build.load().fill_poly_u8(_ptr(im), im.shape[0], im.shape[1], cn,
+                                       pts.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), len(pts),
+                                       _ptr(_color(color, cn)))
+    return im
 
 
 # --- colour ------------------------------------------------------------------
@@ -310,6 +329,45 @@ def encode_png(im, level=6):
 def imwrite_png(path, im, level=6):
     """Write a BGR uint8 image as PNG."""
     Path(path).write_bytes(encode_png(im, level))
+
+
+def encode_jpeg(im, quality=95):
+    """BGR uint8 (H, W, 3) (or gray (H, W), or (H, W, 4) with its fourth
+    channel dropped) -> JPEG bytes, equal to cv2.imencode(".jpg", im,
+    [cv2.IMWRITE_JPEG_QUALITY, quality]) with OpenCV's other defaults
+    (4:2:0 for colour, the islow DCT, the standard Huffman tables)."""
+    im = np.ascontiguousarray(im, dtype=np.uint8)
+    if im.ndim not in (2, 3):
+        raise ValueError(f"encode_jpeg takes a (H, W) or (H, W, C) image, got shape {im.shape}")
+    h, w = im.shape[:2]
+    cn = 1 if im.ndim == 2 else im.shape[2]
+    # the most a block can take: 22 bits of DC and 63 x 26 of AC, doubled by 0xFF stuffing (416 bytes);
+    # 6 blocks a 16 x 16 MCU in colour (4:2:0), 1 an 8 x 8 in gray; the headers under 1 KiB
+    blocks = -(-h // 8) * -(-w // 8) if cn == 1 else 6 * -(-h // 16) * -(-w // 16)
+    out = np.empty(416 * blocks + 1024, np.uint8)
+    err = ctypes.create_string_buffer(256)
+    n = host_build.load().jpeg_encode_bgr(_ptr(im), h, w, cn, int(quality), _ptr(out), out.size, err, 256)
+    if n < 0:
+        raise ValueError(err.value.decode())
+    return out[:n].tobytes()
+
+
+def imwrite_jpeg(path, im, quality=95):
+    """Write a BGR uint8 image as JPEG (cv2.imwrite's bytes for a .jpg path)."""
+    Path(path).write_bytes(encode_jpeg(im, quality))
+
+
+WRITERS = {".jpg": imwrite_jpeg, ".jpeg": imwrite_jpeg, ".png": imwrite_png}
+
+
+def imwrite(path, im):
+    """Write a BGR uint8 image in the format its suffix names, as cv2.imwrite
+    does: .jpg / .jpeg as JPEG (quality 95), .png as PNG. Any other suffix
+    raises ValueError."""
+    suffix = Path(str(path)).suffix.lower()
+    if suffix not in WRITERS:
+        raise ValueError(f"imwrite writes .jpg, .jpeg and .png, not {suffix!r} ({path})")
+    WRITERS[suffix](path, im)
 
 
 def decode_bmp(data):

@@ -25,7 +25,7 @@ batches with pad 0.5.
 
 With `plots=True` (as the JAX validator; utils/plots.py) it writes to
 save_dir the label and prediction mosaics of the first three batches
-(val_batch{i}_labels.png / _pred.png), the PR, F1, P and R curves where a
+(val_batch{i}_labels.jpg / _pred.jpg), the PR, F1, P and R curves where a
 detection is right, and the confusion matrix.
 """
 
@@ -390,11 +390,11 @@ def _plot_curves(curves, ap, cls_names, save_dir):
 
 
 def _plot_val_batch(imgs, targets, mask, dets, n_valid, bi, save_dir, names, conf=0.25, max_boxes=15):
-    """val_batch{bi}_labels.png (the labels) and val_batch{bi}_pred.png (up to
+    """val_batch{bi}_labels.jpg (the labels) and val_batch{bi}_pred.jpg (up to
     `max_boxes` detections above `conf` an image) of one batch (reference val.py:417-419)."""
     names = {int(k): v for k, v in dict(names).items()} if names else None
     _plot_or_warn("val batch labels", plot_images, imgs, targets, masks=mask,
-                  fname=save_dir / f"val_batch{bi}_labels.png", names=names)
+                  fname=save_dir / f"val_batch{bi}_labels.jpg", names=names)
     h, w = imgs.shape[1:3]
     pt = np.zeros((imgs.shape[0], max_boxes, 5), np.float32)
     pm = np.zeros((imgs.shape[0], max_boxes), bool)
@@ -409,7 +409,7 @@ def _plot_val_batch(imgs, targets, mask, dets, n_valid, bi, save_dir, names, con
             pt[si, : len(d), 4] = (d[:, 3] - d[:, 1]) / h
             pm[si, : len(d)] = True
     _plot_or_warn("val batch predictions", plot_images, imgs, pt, masks=pm,
-                  fname=save_dir / f"val_batch{bi}_pred.png", names=names)
+                  fname=save_dir / f"val_batch{bi}_pred.jpg", names=names)
 
 
 def _save_one_txt(pred, labels_dir, stem, h0w0, save_conf):

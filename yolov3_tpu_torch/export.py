@@ -21,7 +21,7 @@ has a `<name>.meta.json` sidecar ({stride, names, imgsz}, the JAX keys).
 `stablehlo` raises: the port's runtime never imports JAX, so its format
 is `pt2`. `savedmodel`, `tflite`, `--int8` and `--data` (int8 calibration)
 raise before anything is exported: they need a TensorFlow graph emitter
-(ROADMAP.md queue 1 item 11).
+(ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ import torch.nn as nn
 from yolov3_tpu_torch.utils.general import LOGGER, colorstr, file_size
 
 EXPORT_FORMATS = ("checkpoint", "pt2", "onnx")
-TF_FORMATS = "the TensorFlow formats (savedmodel, tflite, int8 calibration) are not ported yet (ROADMAP.md queue 1 item 11)"
+TF_FORMATS = "the TensorFlow formats (savedmodel, tflite, int8 calibration) are not ported yet (ROADMAP.md queue 1 item 7)"
 
 
 def try_export(fn):

@@ -7,7 +7,7 @@ of them; letterboxes them to a stride multiple; runs the BN-folded forward
 (bf16 on the card, float32 on the CPU), the decode and `batched_nms` (the
 NMS kernel on the card); and returns `Detections` with xyxy / xywh views
 (pixels and normalised), crop / save / render and per-stage times. Images
-and crops are saved as PNG.
+and crops are saved as JPEG (`<name>.jpg`), as the JAX package saves them.
 """
 
 from __future__ import annotations
@@ -77,7 +77,7 @@ class AutoShape:
                 if im.shape[0] < 5 and im.ndim == 3:  # CHW -> HWC
                     im = im.transpose(1, 2, 0)
                 im = im[..., :3]
-                files.append(Path(Path(f).name or f"image{i}").with_suffix(".png").name)
+                files.append(Path(Path(f).name or f"image{i}").with_suffix(".jpg").name)
                 shape0.append(im.shape[:2])
                 loaded.append(im)
             target = int(np.ceil(size / self.stride) * self.stride)
@@ -199,8 +199,7 @@ class Detections:
                 LOGGER.warning("Detections.show() needs a display; use save() or render()")
             if save:
                 save_dir.mkdir(parents=True, exist_ok=True)
-                image_ops.imwrite_png(save_dir / Path(self.files[i]).with_suffix(".png").name,
-                                      np.ascontiguousarray(result[:, :, ::-1]))
+                image_ops.imwrite_jpeg(save_dir / self.files[i], np.ascontiguousarray(result[:, :, ::-1]))
         if pprint:
             s += f"\nSpeed: {self.t[0]:.1f}ms pre, {self.t[1]:.1f}ms inference, {self.t[2]:.1f}ms post per image"
             LOGGER.info(s)

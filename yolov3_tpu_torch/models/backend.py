@@ -85,8 +85,9 @@ class MultiBackend:
             raise ValueError(f"{w}: a StableHLO artifact needs JAX, which the port never imports; export the "
                              "model with yolov3_tpu_torch.export --include pt2 (or onnx) and load that")
         if w.suffix == ".tflite" or str(w).endswith("_savedmodel"):
-            raise NotImplementedError(f"{w}: TensorFlow artifacts are not ported yet (ROADMAP.md queue 1 "
-                                      "item 11); the port reads .pt2, .onnx, checkpoints and reference .pt")
+            raise NotImplementedError(f"{w}: TensorFlow artifacts are not ported yet "
+                                      "(ROADMAP.md queue 1 item 7); the port reads .pt2, .onnx, checkpoints "
+                                      "and reference .pt")
         return {".pt": "torch_pt", ".pt2": "pt2", ".onnx": "onnx"}.get(w.suffix, "config")
 
     def _load_pt2(self, w):

@@ -23,8 +23,10 @@ def load_weights(weights, ch=3, nc=None, device=None):
     other zoo model), else the cfg named by the file's stem (yolov3,
     yolov3-spp, yolov3-tiny; another stem assumes yolov3); it raises when
     more tensors fail to load than load. A
-    missing `.pt` raises: nothing is downloaded. Anything else: a cfg name or
-    YAML path (seeded random weights). ch / nc apply to cfg and .pt builds."""
+    missing `.pt` is fetched from the reference's release assets first
+    (utils/downloads.attempt_download), which raises FileNotFoundError
+    offline. Anything else: a cfg name or YAML path (seeded random weights).
+    ch / nc apply to cfg and .pt builds."""
     from yolov3_tpu_torch.utils.checkpoint import load_model_from_checkpoint
 
     p = Path(str(weights))
@@ -32,8 +34,9 @@ def load_weights(weights, ch=3, nc=None, device=None):
         return load_model_from_checkpoint(p, device=device)
     if p.suffix == ".pt":
         if not p.is_file():
-            raise FileNotFoundError(f"{p} does not exist; weights are never downloaded (this runs offline): "
-                                    "copy the reference .pt to this path, or pass a port checkpoint or a cfg")
+            from yolov3_tpu_torch.utils.downloads import attempt_download
+
+            p = Path(attempt_download(p))
         device = select_device(device)
         sd, cfg = load_torch_checkpoint(p)
         if cfg is not None:

@@ -1,9 +1,9 @@
 """Build csrc/host_ops.cpp with the system C++ compiler and load it.
 
-The host image ops (data/image_ops.py) are C++ with a plain C interface,
-compiled on first use into `_build/libhost_ops-<hash>.so` (the hash covers
-the source, the flags, the compiler's version and the machine) and loaded
-with ctypes. There is no fallback: if the compiler is missing or the build
+The host image ops (data/image_ops.py) and the host greedy NMS (native/)
+are C++ with a plain C interface, compiled on first use into
+`_build/libhost_ops-<hash>.so` (the hash covers the source, the flags, the
+compiler's version and the machine) and loaded with ctypes. There is no fallback: if the compiler is missing or the build
 fails, `load()` raises.
 """
 
@@ -71,6 +71,7 @@ def load() -> ctypes.CDLL:
 def _declare(lib):
     u8p = ctypes.POINTER(ctypes.c_uint8)
     f64p = ctypes.POINTER(ctypes.c_double)
+    f32p = ctypes.POINTER(ctypes.c_float)
     i = ctypes.c_int
     sig = {
         "resize_linear_u8": [u8p, i, i, i, u8p, i, i],
@@ -84,11 +85,15 @@ def _declare(lib):
         "png_filter_sub": [u8p, i, i, i, u8p],
         "jpeg_info": [u8p, ctypes.c_long, ctypes.POINTER(i), ctypes.c_char_p, i],
         "jpeg_decode_bgr": [u8p, ctypes.c_long, u8p, ctypes.c_char_p, i],
+        "jpeg_encode_bgr": [u8p, i, i, i, i, u8p, ctypes.c_long, ctypes.c_char_p, i],
+        "greedy_nms_batch": [f32p, f32p, f32p, f32p, i, i, ctypes.c_float, i, f32p, ctypes.POINTER(i)],
+        "fill_poly_u8": [u8p, i, i, i, ctypes.POINTER(i), i, u8p],
         "blend_mask_u8": [u8p, i, i, u8p, i, i, i, i, u8p],
         "draw_rect_stamp": [u8p, i, i, u8p, i, i, i, i, i, i, i, u8p],
     }
+    restype = {"png_unfilter": i, "jpeg_info": i, "jpeg_decode_bgr": i, "jpeg_encode_bgr": ctypes.c_long}
     for name, args in sig.items():
         fn = getattr(lib, name)
         fn.argtypes = args
-        fn.restype = ctypes.c_int if name in ("png_unfilter", "jpeg_info", "jpeg_decode_bgr") else None
+        fn.restype = restype.get(name)
     return lib

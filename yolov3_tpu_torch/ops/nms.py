@@ -6,7 +6,8 @@ best-class or multi-label expansion, a top-`max_nms` prefilter by score,
 then exact greedy NMS with the class-offset trick (c * 7680, general.py:731),
 and, with `merge=True`, the IoU-weighted box merge (general.py:735-742) in
 plain tensor ops after the kernel. `non_max_suppression` is the host-facing
-form: arrays in, a list of (n, 6) arrays out, apriori labels injected.
+form: arrays in, a list of (n, 6) arrays out, apriori labels injected; for
+numpy predictions its suppression is the host C++ loop of `native`.
 """
 
 from __future__ import annotations
@@ -159,6 +160,17 @@ def _inject_apriori_labels(pred, labels):
     return np.concatenate([pred, np.stack(pads)], axis=1)
 
 
+def _host_nms(boxes_off, boxes, scores, cls_ids, iou_thres=0.45, max_det=300):
+    """`greedy_nms`'s arguments and results through the host C++ loop
+    (native.greedy_nms_batch) on CPU tensors: the `nms_fn` of
+    `non_max_suppression(engine="native")`."""
+    from yolov3_tpu_torch import native
+
+    out, n_valid = native.greedy_nms_batch(*(t.numpy() for t in (boxes_off, boxes, scores, cls_ids)),
+                                           iou_thres=iou_thres, max_det=max_det)
+    return torch.from_numpy(out), torch.from_numpy(n_valid)
+
+
 def non_max_suppression(prediction, conf_thres=0.25, iou_thres=0.45, classes=None, agnostic=False,
                         multi_label=False, labels=(), max_det=300, max_nms=30000, merge=False, engine="auto",
                         device=None, nms_fn=None):
@@ -168,26 +180,29 @@ def non_max_suppression(prediction, conf_thres=0.25, iou_thres=0.45, classes=Non
     `prediction`: (bs, N, 5+nc) decoded predictions, a tensor or an array,
     or the (inference, train_out) tuple of a val-mode model. `labels`: per
     image (m, 5) [cls, x, y, w, h] in pixels, injected as candidates of
-    confidence 1 (general.py:689-695). The prediction goes to
-    `select_device(device)` (None means "cuda") and through `batched_nms`
-    there, so the suppression is the NMS kernel on the card.
+    confidence 1 (general.py:689-695).
 
-    `engine`: "auto" (or the JAX package's "xla") runs `batched_nms`; the
-    JAX package's "native" host C++ loop is not ported (ROADMAP.md queue 1
-    item 10). `nms_fn` as in `batched_nms`.
+    `engine`, as in the JAX package (:375-384): "native" runs `batched_nms`
+    on the CPU with the host C++ greedy loop (`_host_nms`) as its
+    suppression; "auto" takes it for a numpy prediction without `merge`;
+    "xla", and any merge-NMS, run `batched_nms` on `select_device(device)`
+    (None means "cuda"), so the suppression is the NMS kernel on the card.
+    `nms_fn` as in `batched_nms`.
     """
-    if engine == "native":
-        raise NotImplementedError("non_max_suppression: engine='native' (the host C++ greedy NMS of "
-                                  "yolov3_tpu/native) is not ported yet (ROADMAP.md queue 1 item 10)")
-    if engine not in ("auto", "xla"):
+    if engine not in ("auto", "xla", "native"):
         raise ValueError(f"non_max_suppression: unknown engine {engine!r}")
     if isinstance(prediction, (list, tuple)):
         prediction = prediction[0]
-    device = select_device(device)
-    if labels and any(len(lb) for lb in labels):
+    injected = labels and any(len(lb) for lb in labels)
+    use_native = not merge and (engine == "native" or (engine == "auto" and isinstance(prediction, np.ndarray)))
+    if use_native or injected:
         host = prediction.float().cpu().numpy() if isinstance(prediction, torch.Tensor) else prediction
-        prediction = _inject_apriori_labels(np.asarray(host, dtype=np.float32), labels)
-    prediction = torch.as_tensor(prediction).to(device=device, dtype=torch.float32)
+        prediction = np.asarray(host, dtype=np.float32)
+        if injected:
+            prediction = _inject_apriori_labels(prediction, labels)
+    if use_native:
+        device, nms_fn = "cpu", _host_nms
+    prediction = torch.as_tensor(prediction).to(device=select_device(device), dtype=torch.float32)
     out, n_valid = batched_nms(prediction, conf_thres=float(conf_thres), iou_thres=float(iou_thres),
                                classes=classes, agnostic=bool(agnostic), multi_label=bool(multi_label),
                                max_det=int(max_det), max_nms=int(max_nms), merge=bool(merge), nms_fn=nms_fn)

@@ -39,14 +39,17 @@ batch's already (JAX :99-102).
 Plots (unless `noplots`, as in the JAX package): labels.png and the label
 correlogram before the first epoch, the first three train batches' mosaics,
 the last epoch's validation plots and results.png at the end
-(utils/loggers, utils/plots.py).
+(utils/loggers, utils/plots.py). Rank 0 logs to results.csv and to the
+tracker sinks that are on (utils/loggers: TensorBoard, W&B, ClearML,
+Comet); `entity` names the W&B team, `upload_dataset` sends the dataset to
+W&B as an artifact, and `bbox_interval` paces the val mosaics sent.
 
 `half=None` decides bf16 autocast as the JAX package does: on the card when
 `utils.checks.check_bf16` passes (under a process group, rank 0's verdict),
 float32 on the CPU.
 
-Not ported (each raises NotImplementedError): `s2d_stem` (ROADMAP.md queue
-1 item 9), `upload_dataset` and `entity` (item 7).
+Not ported (raises NotImplementedError): `s2d_stem`
+(ROADMAP.md queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -78,15 +82,6 @@ from yolov3_tpu_torch.utils.general import (LOGGER, colorstr, increment_path, in
 from yolov3_tpu_torch.utils.loggers import Loggers
 
 HYPS = Path(__file__).resolve().parents[1] / "data" / "hyps"
-
-
-def _refuse(**options):
-    items = {"s2d_stem": "the space-to-depth stem (ROADMAP.md queue 1 item 9)",
-             "upload_dataset": "dataset upload to W&B (ROADMAP.md queue 1 item 7)",
-             "entity": "the W&B entity (ROADMAP.md queue 1 item 7)"}
-    for name, value in options.items():
-        if value:
-            raise NotImplementedError(f"train: {items[name]} is not ported yet")
 
 
 def _to_device(a, device):
@@ -143,15 +138,16 @@ def train(
     """Train a detection model. Returns (best_fitness, results, save_dir).
 
     The arguments are the JAX `train`'s, plus `device` (None means "cuda"
-    and raises without one; the CPU only when asked for). `bbox_interval`
-    paces image logging to the tracker sinks, which are not ported, and is
-    accepted unused. `half=None` means bf16 autocast on the card where
-    `check_bf16` passes, float32 on the CPU. `s2d_stem`, `upload_dataset`
-    and `entity` raise NotImplementedError (see the module docstring). `resume=True`
+    and raises without one; the CPU only when asked for). `entity`,
+    `upload_dataset` and `bbox_interval` go to the tracker sinks (see the
+    module docstring). `half=None` means bf16 autocast on the card where
+    `check_bf16` passes, float32 on the CPU. `s2d_stem` raises
+    NotImplementedError (ROADMAP.md queue 1 item 6). `resume=True`
     continues the run in `save_dir` from weights/last, full or stripped.
     Under a process group every rank calls it (see the module docstring).
     """
-    _refuse(s2d_stem=s2d_stem, upload_dataset=upload_dataset, entity=entity)
+    if s2d_stem:
+        raise NotImplementedError("train: the space-to-depth stem is not ported yet (ROADMAP.md queue 1 item 6)")
     device = par.rank_device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -175,11 +171,18 @@ def train(
     if main_rank:
         yaml_save(save_dir / "hyp.yaml", hyp)
     rng, np_rng = init_seeds(seed)
+    loggers = None
     if main_rank:
-        Loggers(save_dir=save_dir, plots=not noplots).attach(callbacks)
+        # the fields of the run's options the tracker sinks read (reference train.py:176)
+        opt = types.SimpleNamespace(project=str(project), name=name, entity=entity, resume=resume, epochs=epochs,
+                                    bbox_interval=bbox_interval, upload_dataset=upload_dataset)
+        loggers = Loggers(save_dir=save_dir, opt=opt, hyp=hyp, plots=not noplots)
+        loggers.attach(callbacks)
     callbacks.run("on_pretrain_routine_start")
 
     data_dict = check_dataset(data)
+    if loggers and upload_dataset:
+        loggers.log_dataset_artifact(data_dict)
     names = data_dict["names"]
     nc = 1 if single_cls else data_dict["nc"]
     # labels are checked against the dataset's classes and single_cls collapses them to 0 after;
@@ -209,6 +212,8 @@ def train(
         from yolov3_tpu_torch.utils.autobatch import check_train_batch_size
 
         batch_size = check_train_batch_size(model, imgsz=imgsz, compute_dtype=compute_dtype)
+    if loggers is not None:
+        loggers.log_model_graph(model, imgsz=imgsz)
 
     # datasets
     if rect:

@@ -3,8 +3,8 @@ utils/general.py:92-155, 869-900).
 
 `imread` and `imwrite` go through the port's in-tree codecs
 (data/image_ops.py), which open files by Python path, so non-ASCII paths
-work. `imwrite` writes PNG only: the port has no JPEG encoder yet
-(ROADMAP.md queue 1, "An in-tree JPEG encoder"), and any other suffix raises.
+work. `imwrite` writes JPEG (.jpg / .jpeg, the bytes cv2 writes) and PNG;
+any other suffix raises.
 """
 
 from __future__ import annotations
@@ -91,11 +91,9 @@ def imread(path, flags=None):
 
 
 def imwrite(path, im) -> bool:
-    """Write a BGR uint8 image as PNG to any path; True when written."""
-    if Path(str(path)).suffix.lower() != ".png":
-        raise NotImplementedError(f"imwrite writes PNG only, not {Path(str(path)).suffix!r}: the JPEG encoder "
-                                  "is not ported yet (ROADMAP.md queue 1, 'An in-tree JPEG encoder')")
-    image_ops.imwrite_png(path, im)
+    """Write a BGR uint8 image to any path, as JPEG for .jpg / .jpeg and PNG
+    for .png (any other suffix raises ValueError); True when written."""
+    image_ops.imwrite(path, im)
     return True
 
 

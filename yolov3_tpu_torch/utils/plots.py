@@ -11,10 +11,11 @@ blends it; a box within 2 levels of cv2 on more than 99.5% of its pixels).
 The atlas covers line widths 1..32; a wider line raises.
 tests/test_torch_plots.py holds the drawing to the JAX package's.
 
-Images (crops, mosaics, the label correlogram) are written as PNG
-(`image_ops.imwrite_png`, or matplotlib), where the JAX package writes JPEG.
-`plot_images` needs nothing beyond numpy, so it runs on any host. The other
-plots draw with matplotlib (the correlogram with seaborn and pandas too),
+Images (crops, mosaics, the label correlogram) are written as the JAX
+package writes them, JPEG by default, through the in-tree encoder
+(`image_ops.imwrite`, which picks the format by suffix); the other plots are
+PNG, as there. `plot_images` needs nothing beyond numpy, so it runs on any
+host. The other plots draw with matplotlib (the correlogram with seaborn and pandas too),
 imported inside the function: on a host without the package the function
 logs one line, writes nothing and returns None. Nothing is installed.
 """
@@ -160,9 +161,9 @@ class Annotator:
         return self.im
 
 
-def save_one_box(xyxy, im, file=Path("im.png"), gain=1.02, pad=10, square=False, BGR=True, save=True):
-    """Crop a box from an image with a margin and save it as PNG, `file` with
-    the suffix .png (detect --save-crop)."""
+def save_one_box(xyxy, im, file=Path("im.jpg"), gain=1.02, pad=10, square=False, BGR=True, save=True):
+    """Crop a box from an image with a margin and save it to `file`, JPEG or
+    PNG by its suffix (detect --save-crop)."""
     b = np.asarray(xyxy, np.float32).reshape(-1, 4)
     xywh = np.concatenate([(b[:, :2] + b[:, 2:]) / 2, (b[:, 2:] - b[:, :2])], 1)
     if square:
@@ -173,15 +174,15 @@ def save_one_box(xyxy, im, file=Path("im.png"), gain=1.02, pad=10, square=False,
     x1, y1, x2, y2 = max(b[0, 0], 0), max(b[0, 1], 0), min(b[0, 2], w), min(b[0, 3], h)
     crop = im[y1:y2, x1:x2, :: (1 if BGR else -1)]
     if save:
-        file = Path(file).with_suffix(".png")
+        file = Path(file)
         file.parent.mkdir(parents=True, exist_ok=True)
-        image_ops.imwrite_png(file, crop)
+        image_ops.imwrite(file, crop)
     return crop
 
 
-def plot_images(images, targets, masks=None, paths=None, fname="images.png", names=None, max_subplots=16):
-    """A tiled mosaic of a batch with its boxes, written as PNG (`fname` with
-    the suffix .png); returns the BGR mosaic.
+def plot_images(images, targets, masks=None, paths=None, fname="images.jpg", names=None, max_subplots=16):
+    """A tiled mosaic of a batch with its boxes, written to `fname` (JPEG or
+    PNG by its suffix); returns the BGR mosaic.
 
     images: (B, H, W, 3) uint8 RGB; targets: (B, M, 5) [cls, xywh normalised]
     with masks (B, M) of the valid rows (without masks, the rows of width > 0)."""
@@ -200,7 +201,7 @@ def plot_images(images, targets, masks=None, paths=None, fname="images.png", nam
                 box = [x + (cx - bw / 2) * w, y + (cy - bh / 2) * h, x + (cx + bw / 2) * w, y + (cy + bh / 2) * h]
                 label = names.get(int(cls), str(int(cls))) if names else str(int(cls))
                 ann.box_label(box, label, color=colors(cls, True))
-    image_ops.imwrite_png(Path(fname).with_suffix(".png"), grid)
+    image_ops.imwrite(fname, grid)
     return grid
 
 
@@ -353,7 +354,8 @@ def plot_labels(labels, names=(), save_dir=Path(".")):
 
 
 def plot_labels_correlogram(labels, save_dir=Path(".")):
-    """The pairwise (x, y, w, h) correlogram of the labels (seaborn's pairplot) as labels_correlogram.png."""
+    """The pairwise (x, y, w, h) correlogram of the labels (seaborn's pairplot) as labels_correlogram.jpg:
+    the figure is rendered to an array and encoded in-tree (matplotlib writes JPEG only through Pillow)."""
     labels = np.asarray(labels)
     if not len(labels):
         return None
@@ -363,8 +365,11 @@ def plot_labels_correlogram(labels, save_dir=Path(".")):
     plt, pd, sn = mods
     df = pd.DataFrame(labels[:, 1:5], columns=["x", "y", "width", "height"])
     sn.pairplot(df, corner=True, diag_kind="auto", kind="hist", diag_kws=dict(bins=50), plot_kws=dict(pmax=0.9))
-    out = Path(save_dir) / "labels_correlogram.png"
-    plt.savefig(out, dpi=200)
+    out = Path(save_dir) / "labels_correlogram.jpg"
+    fig = plt.gcf()
+    fig.set_dpi(200)
+    fig.canvas.draw()
+    image_ops.imwrite_jpeg(out, np.ascontiguousarray(np.asarray(fig.canvas.buffer_rgba())[..., 2::-1]))
     plt.close()
     return out
 
