@@ -130,6 +130,18 @@ Phases, each printing its result on its own line:
      bars, the images equal in every bit counted; non_max_suppression on a
      numpy prediction (the host engine) against batched_nms through K1; the
      host loop's ms beside K1's.
+ 15. the TPU layout options of the JAX package (phase_layout, after 14, on
+     the planted model): the serving batch of 32 through the padded head
+     (serving_module(pad_lanes=128), decode_topk_nhwc(padded_lanes=128)) and
+     through the 5-D eval head (decode_topk_candidates), each into
+     nms_from_candidates: K2 three and K1 one launch, the rows equal to the
+     plain fast path's at the NMS bars, ms a batch beside the plain layout's;
+     yolov3 with s2d_stem=True through 1 + 2 float32 train steps against the
+     same steps without it from one seeded state (deterministic cuDNN):
+     losses, grad norms and the train state equal in their bits, K3 33
+     launches a step; and, on a host with tensorflow, a savedmodel and a
+     tflite of the model read back through MultiBackend against the port's
+     float32 decode (a host without it prints that they were not run).
 The first lines also name the optional packages the host has (env:
 tensorboard, tensorflow, wandb, clearml, comet_ml, cv2, matplotlib).
 With `--kernel-times [ROOT]` it only times K3, K1 and K2 of the package under
@@ -1070,7 +1082,9 @@ def phase_export(model, batches, gpu):
     os.chdir(tmp)  # benchmarks exports to runs/export under the working directory
     try:
         t0 = time.perf_counter()
-        rows = benchmarks.run(str(ckpt), data=str(root / "dataset.yaml"), imgsz=640, batch_size=32)
+        # the card's formats; the TensorFlow ones run on the host only (phase_layout's `layout_tensorflow`)
+        rows = benchmarks.run(str(ckpt), data=str(root / "dataset.yaml"), imgsz=640, batch_size=32,
+                              formats=("checkpoint", "pt2", "onnx"))
         bench_s = time.perf_counter() - t0
     finally:
         os.chdir(cwd)
@@ -3257,6 +3271,205 @@ def phase_parallel(model, serving_batch, val_batches, map50, gpu):
     return launches, out
 
 
+LAYOUT_PAD = 128  # lanes an anchor in the padded head: the JAX package's serving_module(pad_lanes=128)
+LAYOUT_TRAIN_STEPS = 3  # 1 + 2 float32 steps with and without s2d_stem
+LAYOUT_TF_BATCH = 2  # frames of the serving batch through the TensorFlow artifacts, on the host
+LAYOUT_ROUNDS = 3  # timing windows of each layout, taken in turns
+
+
+def phase_layout(model, serving_batch, gpu):
+    """The JAX package's TPU layout options in the port (phase 15, after 14,
+    on the planted model): the serving batch of 32 through the padded head
+    (serving_module(pad_lanes=128) -> decode_topk_nhwc(padded_lanes=128) ->
+    nms_from_candidates) and through the 5-D eval head (decode_topk_candidates
+    -> nms_from_candidates), each with its launches counted (K2 three, K1
+    one). Each layout's kernel run is held to the plain versions on its own
+    head outputs: K2 against masked_scores_plain on the very rows the decode
+    hands it (the padded bf16 rows with no = 128, the float32 rows of the 5-D
+    head; `check_scores`), and the rows against the same decode through
+    masked_scores_plain and greedy_nms_plain at the NMS bars; and to the
+    plain fast path's rows at the NMS bars. Then the space-to-depth stem
+    through the train step (`layout_s2d_train`), and the TensorFlow formats
+    where the host has tensorflow (`layout_tensorflow`)."""
+    from yolov3_tpu_torch.models.detect_head import decode_topk_candidates, decode_topk_nhwc
+    from yolov3_tpu_torch.ops.nms import nms_from_candidates
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms_plain
+    from yolov3_tpu_torch.ops.score_cuda import masked_scores_plain
+    from yolov3_tpu_torch.serve import build_batched_infer
+
+    infer = build_batched_infer(model)
+    serving = infer.serving_model
+    padded_graph = serving.serving_module(pad_lanes=LAYOUT_PAD)
+    anchors, strides = model.anchors_px, model.spec.strides
+    imgs = torch.as_tensor(serving_batch, device=model.device)
+    x = imgs.to(serving.dtype) / 255.0  # the fast path's input: uint8 is exact in bf16
+    layouts = {  # name: (head, decode)
+        "plain": (lambda x: serving(x, raw=True), lambda f, **kw: decode_topk_nhwc(f, anchors, strides, **kw)),
+        "padded_head": (padded_graph,
+                        lambda f, **kw: decode_topk_nhwc(f, anchors, strides, padded_lanes=LAYOUT_PAD, **kw)),
+        "head_5d": (serving, lambda f, **kw: decode_topk_candidates(f, anchors, strides, **kw)),
+    }
+
+    @torch.inference_mode()
+    def serve(name, feats=None, plain_fns=None):
+        """Forward (unless `feats` is given), decode and NMS of one layout:
+        through the kernels, or with plain_fns=(score_fn, nms_fn) through those."""
+        head, decode = layouts[name]
+        feats = head(x) if feats is None else feats
+        score, nms = ({}, {}) if plain_fns is None else ({"score_fn": plain_fns[0]}, {"nms_fn": plain_fns[1]})
+        boxes, scores, cls_ids, overflow = decode(feats, with_overflow=True, **score)
+        dets, n = nms_from_candidates(boxes, scores, cls_ids, **nms)
+        return feats, dets, n, overflow
+
+    want, want_n, want_ov = infer.fast_fn(imgs)
+    check(not bool(want_ov.any()), "layout: the plain fast path overflowed on the serving batch")
+    want, want_n = want.cpu().numpy(), want_n.cpu().numpy()
+    for name in layouts:
+        serve(name)  # cuDNN picks the padded head conv's algorithm
+    # in turns, LAYOUT_ROUNDS rounds of each: on a shared host one window alone has moved by 10%
+    ms = {name: [] for name in layouts}
+    for _ in range(LAYOUT_ROUNDS):
+        for name in layouts:
+            ms[name].append(cuda_ms(functools.partial(serve, name), iters=10))
+    out = dict(plain_ms=float(np.median(ms["plain"])), plain_ms_rounds=ms["plain"])
+    for name in ("padded_head", "head_5d"):
+        torch.cuda.synchronize()
+        # --- the layout path: every launch from here to the count read is its own
+        reset_kernel_counts()
+        feats, dets, n, overflow = serve(name)
+        torch.cuda.synchronize()
+        launches = kernel_counts()
+        # --- end of the layout path
+        check(launches == {"greedy_nms": 1, "masked_scores": 3, "conv3x3_bn_stats": 0},
+              f"layout {name}: launches {launches}, expected K2 3 and K1 1")
+        check(not bool(overflow.any()), f"layout {name}: the serving batch overflowed")
+        dets, n = dets.cpu().numpy(), n.cpu().numpy()
+        check(n.sum() > 0, f"layout {name}: no detection in the serving batch")
+
+        # the same head outputs through the plain versions: K2 on each row tensor the decode hands it
+        rows_in = []
+        plain_scores = functools.partial(_recorded, masked_scores_plain, rows_in)
+        _, dets_p, n_p, overflow_p = serve(name, feats, (plain_scores, greedy_nms_plain))
+        check(len(rows_in) == 3, f"layout {name}: the decode scored {len(rows_in)} row tensors, expected 3")
+        score_err = max(check_scores(*args, f"layout {name} scale {i}") for i, args in enumerate(rows_in))
+        check(not bool(overflow_p.any()), f"layout {name}: the plain versions overflowed")
+        dets_p, n_p = dets_p.cpu().numpy(), n_p.cpu().numpy()
+        check((n == n_p).all(), f"layout {name}: n {n.tolist()} != plain versions' {n_p.tolist()}")
+        errs_p = [check_dets(dets[i, :n[i]], dets_p[i, :n_p[i]], f"layout {name} vs plain versions, image {i}")
+                  for i in range(len(n))]
+
+        # the 5-D decode sorts candidates in (a, y, x) order, the NHWC one in (y, x, a): rows of equal score
+        # (equal bf16 logits) come out in another order, so there both sides are put in one order first
+        order = _tie_order if name == "head_5d" else (lambda d: d)
+        errs = [check_dets(order(dets[i, :n[i]]), order(want[i, :want_n[i]]), f"layout {name} image {i}")
+                for i in range(len(n))]
+        out[name] = dict(launches=launches, n=int(n.sum()), box_err=max(e[0] for e in errs),
+                         conf_err=max(e[1] for e in errs), plain_box_err=max(e[0] for e in errs_p),
+                         plain_conf_err=max(e[1] for e in errs_p), score_err=score_err,
+                         ms=float(np.median(ms[name])), ms_rounds=ms[name])
+        r = out[name]
+        print(f"layout {name}: batch {len(n)} at {imgs.shape[1]} px, n {r['n']}; against the plain versions on "
+              f"its own head outputs (masked_scores_plain, greedy_nms_plain): K2 args equal, max score err "
+              f"{score_err:.3g}, rows n equal, max box err {r['plain_box_err']:.3g} px, conf err "
+              f"{r['plain_conf_err']:.3g}; against the plain fast path's rows: n equal, max box err "
+              f"{r['box_err']:.3g} px, conf err {r['conf_err']:.3g}; launches {launches}, {r['ms']:.3f} ms a "
+              f"batch (forward + decode + NMS; median of {LAYOUT_ROUNDS} rounds in turns: "
+              f"{' '.join(f'{v:.3f}' for v in ms[name])}) against the plain layout's {out['plain_ms']:.3f} "
+              f"({' '.join(f'{v:.3f}' for v in ms['plain'])}) on {gpu}", flush=True)
+    out["s2d_train"] = layout_s2d_train(gpu)
+    out["tensorflow"] = layout_tensorflow(model, serving_batch[:LAYOUT_TF_BATCH])
+    return out
+
+
+def _recorded(fn, calls, *args):
+    """fn(*args), with args appended to `calls`."""
+    calls.append(args)
+    return fn(*args)
+
+
+def _tie_order(d):
+    """Detection rows by descending score, rows of equal score by their box and class."""
+    return d[np.lexsort((d[:, 5], d[:, 3], d[:, 2], d[:, 1], d[:, 0], -d[:, 4]))]
+
+
+def layout_s2d_train(gpu, steps=LAYOUT_TRAIN_STEPS, bs=8, imgsz=640):
+    """Full-width yolov3 with s2d_stem=True against the same seeded model
+    without it: `steps` float32 train steps each (1 + 2) on one seeded batch
+    under cudnn.deterministic; the losses, grad norms and the whole train
+    state (parameters, BatchNorm statistics, momentum, EMA) equal in their
+    bits, since the port computes the plain layout; K3 33 launches a step."""
+    from yolov3_tpu_torch.models.convert import flatten_train_state
+    from yolov3_tpu_torch.models.detection import DetectionModel
+
+    batch = make_train_batch(np.random.default_rng(15), bs, imgsz)  # a generator of its own
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # cuDNN's backward algorithms that add in a fixed order
+    runs = {}
+    try:
+        for s2d in (True, False):
+            model = DetectionModel.from_config("yolov3", seed=0, s2d_stem=s2d)
+            check(model.s2d_stem == s2d, "layout: the s2d_stem flag was not kept")
+            rows, state = parallel_steps(model, batch, steps)
+            runs[s2d] = (rows, {k: v.clone() if torch.is_tensor(v) else v
+                                for k, v in flatten_train_state(state).items()})
+            del model, state
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (rows, got), (plain_rows, want) = runs[True], runs[False]
+    k3 = [r["k3"] for r in rows]
+    check(k3 == [YOLOV3_K3_CONVS] * steps, f"layout s2d: K3 launches {k3} a step, expected {YOLOV3_K3_CONVS}")
+    check([(r["loss"], r["grad_norm"]) for r in rows] == [(r["loss"], r["grad_norm"]) for r in plain_rows],
+          f"layout s2d: losses {[r['loss'] for r in rows]} != plain {[r['loss'] for r in plain_rows]}")
+    check(got.keys() == want.keys(), "layout s2d: the train states hold other keys")
+    differ = [k for k, v in want.items() if not (torch.equal(got[k], v) if torch.is_tensor(v) else got[k] == v)]
+    check(not differ, f"layout s2d: {len(differ)} state entries differ from the plain run's, e.g. {differ[:3]}")
+    losses = " ".join(f"{r['loss']:.6f}" for r in rows)
+    print(f"layout s2d_stem: yolov3 at {imgsz} px, batch {bs}, {steps} float32 steps equal to the plain layout's "
+          f"in their bits (losses {losses}, "
+          f"{len(want)} state entries), K3 {k3} a step, {np.mean([r['ms'] for r in rows[1:]]):.1f} ms a step "
+          f"(host clock, deterministic cuDNN) on {gpu}", flush=True)
+    return dict(losses=[r["loss"] for r in rows], k3_per_step=k3, state_entries=len(want),
+                step_ms=[r["ms"] for r in rows])
+
+
+def layout_tensorflow(model, frames):
+    """The TensorFlow formats, where the host has tensorflow (decided before
+    anything is imported): a savedmodel and a tflite exported from a host copy
+    of the model, each through MultiBackend on the host, against the port's
+    own float32 decode at the forward bar (atol 2e-3, rtol 1e-3). Without
+    tensorflow it prints that they were not run, and returns ran=False."""
+    import importlib.util
+    import tempfile
+    from pathlib import Path
+
+    if importlib.util.find_spec("tensorflow") is None:
+        print("layout: the TensorFlow formats (savedmodel, tflite) were not run: this host has no tensorflow",
+              flush=True)
+        return dict(ran=False)
+    from yolov3_tpu_torch import export
+    from yolov3_tpu_torch.models.backend import MultiBackend
+
+    host = copy.deepcopy(model).cpu().float().eval()
+    imgsz = frames.shape[1]
+    with torch.inference_mode():
+        want = export.ServingModule(host)(torch.from_numpy(frames)).numpy()
+    out = dict(ran=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for fmt, fn in (("savedmodel", export.export_savedmodel), ("tflite", export.export_tflite)):
+            t0 = time.perf_counter()
+            path = fn(host, Path(tmp) / model.spec.name, imgsz, len(frames))
+            check(path is not None, f"layout: the {fmt} export failed")
+            got = MultiBackend(path, device="cpu")(frames).numpy()
+            err = float(np.abs(got - want).max())
+            check(got.shape == want.shape and bool(np.allclose(got, want, atol=2e-3, rtol=1e-3)),
+                  f"layout {fmt}: decode {got.shape} max err {err} against the port's float32 decode")
+            out[fmt] = dict(max_abs_err=err, s=time.perf_counter() - t0)
+            print(f"layout {fmt}: exported and read back on the host in {out[fmt]['s']:.1f} s, decode of "
+                  f"{len(frames)} frames within {err:.3g} of the port's float32 decode", flush=True)
+    return out
+
+
 def phase_kernel_times(rng, tag):
     """K3 at the timed shapes, yolov3's six and yolov5s's four (batch 8, bf16, the weight as nn.modules.Conv
     hands it over), K1 at NMS_SHAPES and K2 at yolov3@640's three scales
@@ -3384,6 +3597,7 @@ def main(argv=()):
     exported = phase_export(model, val_batches, gpu)
     parallel_launches, parallel = phase_parallel(model, serving_batch, val_batches, val["f32"]["map50"], gpu)
     host_nms = phase_host_nms(model, serving_batch, val_batches[0][0][:2], gpu)
+    layout = phase_layout(model, serving_batch, gpu)
     del model, val_batches  # its head carries the planted detections; the trainer starts from the seeded init
     jpeg = phase_jpeg(gpu)
     detect = phase_detect(gpu)
@@ -3414,7 +3628,9 @@ def main(argv=()):
              parallel_val_launches=parallel_launches["greedy_nms_val"],
              parallel_trainer_launches_rank0=parallel_launches["greedy_nms_trainer"],
              learn_val_launches=learn_launches["greedy_nms"], host_nms_launches=host_nms["launches"]["greedy_nms"],
-             learn_val_launches_per_batch=learn_launches["greedy_nms"] / learn_launches["greedy_nms_val_batches"]),
+             learn_val_launches_per_batch=learn_launches["greedy_nms"] / learn_launches["greedy_nms_val_batches"],
+             layout_padded_head_launches=layout["padded_head"]["launches"]["greedy_nms"],
+             layout_head_5d_launches=layout["head_5d"]["launches"]["greedy_nms"]),
         dict(name="masked_scores", route="cuda", source="yolov3_tpu_torch/csrc/score.cu",
              replaces="yolov3_tpu/ops/score_pallas.py:43", launches=launches["masked_scores"],
              max_abs_err=score["max_abs_err"], ms=score["ms"], plain_ms=score["plain_ms"],
@@ -3423,7 +3639,9 @@ def main(argv=()):
              http_launches=http["launches"]["masked_scores"],
              fast_false_launches=fast_false["launches"]["masked_scores"],
              zoo_launches={k: v["masked_scores"] for k, v in zoo_launches.items()},
-             parallel_serve_launches=parallel_launches["masked_scores_serve"]),
+             parallel_serve_launches=parallel_launches["masked_scores_serve"],
+             layout_padded_head_launches=layout["padded_head"]["launches"]["masked_scores"],
+             layout_head_5d_launches=layout["head_5d"]["launches"]["masked_scores"]),
         dict(name="conv3x3_bn_stats", route="cuda", source="yolov3_tpu_torch/csrc/conv_bn.cu",
              replaces="yolov3_tpu/ops/conv_bn_pallas.py:33", launches=launches["conv3x3_bn_stats"],
              **{k: conv_rows[K3_MAIN_SHAPE][k]
@@ -3434,14 +3652,15 @@ def main(argv=()):
              parallel_world1_launches=parallel_launches["conv3x3_bn_stats_world1"],
              parallel_launches_per_rank_step=parallel_launches["conv3x3_bn_stats_per_rank_step"],
              parallel_trainer_launches_per_rank=parallel_launches["conv3x3_bn_stats_trainer"],
-             learn_launches=learn_launches["conv3x3_bn_stats"], learn_launches_per_step=learn["k3_per_step"]),
+             learn_launches=learn_launches["conv3x3_bn_stats"], learn_launches_per_step=learn["k3_per_step"],
+             layout_s2d_launches_per_step=layout["s2d_train"]["k3_per_step"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"nms_shapes": nms_rows, "conv_bn_shapes": conv_rows, "main_path": e2e, "http": http,
                       "fast_false": fast_false, "val": val, "merge": merge, "save_hybrid": hybrid, "train": train,
                       "remat": remat, "trainer": trainer, "jpeg": jpeg, "detect": detect, "zoo": zoo,
                       "export": exported, "parallel": parallel, "learn": learn, "host_nms": host_nms,
-                      "env": env}))
+                      "layout": layout, "env": env}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -110,7 +110,7 @@ def test_benchmarks_rows_match_jax(setup, jax_val, monkeypatch):
 
     monkeypatch.chdir(setup["tmp"])
     kw = dict(data=setup["data"], imgsz=IMGSZ, batch_size=N_IMAGES, hard_fail=0.3)
-    rows = benchmarks.run(setup["ckpt"], device="cpu", **kw)
+    rows = benchmarks.run(setup["ckpt"], device="cpu", formats=("checkpoint", "pt2", "onnx"), **kw)
     (want,) = jax_benchmarks.run(setup["jax_ckpt"], pt_only=True, **kw)
     assert [r[0] for r in rows] == ["checkpoint", "pt2", "onnx"]
     assert all(v is not None for r in rows for v in r) and all(v is not None for v in want)

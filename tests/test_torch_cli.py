@@ -74,9 +74,13 @@ def test_main_without_device_needs_the_card(monkeypatch):
         train.main(train.parse_opt(argv=["--data", str(ROOT / "yolov3_tpu_torch/data/coco128.yaml")]))
 
 
-@pytest.mark.parametrize("argv,match", [(["--s2d-stem"], "item 6")])
-def test_train_unported_options_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("argv,match", [(["--s2d-stem", "--cfg", "yolov3-tiny"], "tiny's maxpool stem is not")])
+def test_train_s2d_stem_on_tiny_raises_jax_value_error(argv, match, tmp_path):
+    """--s2d-stem runs (tests/test_torch_layout.py); on a stem that is not
+    [Conv k3 s1, Conv k3 s2] it raises the JAX train()'s ValueError."""
+    synthetic.generate(tmp_path / "shapes", n_images=4, imgsz=64, seed=0, n_val=2)
+    argv = [*argv, "--data", str(tmp_path / "shapes" / "dataset.yaml"), "--project", str(tmp_path / "runs")]
+    with pytest.raises(ValueError, match=match):
         train.main(train.parse_opt(argv=["--device", "cpu", *argv]))
 
 

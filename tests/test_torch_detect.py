@@ -186,8 +186,9 @@ def test_detect_classes_agnostic_matches_jax(setup, monkeypatch):
 
 def test_detect_refusals(setup, tmp_path):
     # --visualize is ported (tests/test_torch_plot_hooks.py)
-    # exported .pt2 / .onnx run through MultiBackend (tests/test_torch_backend.py); what the port does not read raises
-    for artifact, error, match in (("m.stablehlo", ValueError, "pt2"), ("m.tflite", NotImplementedError, "item 7"),
+    # exported .pt2 / .onnx / .tflite / _savedmodel run through MultiBackend (tests/test_torch_backend.py,
+    # tests/test_torch_tf_export.py), an artifact without its sidecar raises; what the port does not read raises
+    for artifact, error, match in (("m.stablehlo", ValueError, "pt2"), ("m.tflite", FileNotFoundError, "sidecar"),
                                    ("m.onnx", FileNotFoundError, "sidecar")):
         with pytest.raises(error, match=match):
             detect.run(weights=artifact, device="cpu", project=str(tmp_path))

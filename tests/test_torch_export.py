@@ -139,25 +139,20 @@ def test_missing_sidecar_raises(static2, tmp_path):
             MultiBackend(orphan, device="cpu")
 
 
+# savedmodel, tflite, --int8 and --data export now (tests/test_torch_tf_export.py)
 @pytest.mark.parametrize("kw,error,match", [
     (dict(include=("stablehlo",)), ValueError, "'pt2'"),
-    (dict(include=("savedmodel",)), NotImplementedError, "item 7"),
-    (dict(include=("tflite",)), NotImplementedError, "item 7"),
-    (dict(include=("pt2", "tflite")), NotImplementedError, "item 7"),
-    (dict(include=("pt2",), int8=True), NotImplementedError, "item 7"),
-    (dict(include=("pt2",), data="coco128.yaml"), NotImplementedError, "item 7"),
     (dict(include=("onnx",), nms=True), NotImplementedError, "decode only"),
     (dict(include=("torchscript",)), ValueError, "unknown export format"),
-], ids=["stablehlo", "savedmodel", "tflite", "pt2+tflite", "int8", "data", "onnx-nms", "unknown"])
+], ids=["stablehlo", "onnx-nms", "unknown"])
 def test_unported_formats_raise_before_exporting(kw, error, match, tmp_path):
     with pytest.raises(error, match=match):
         export.run("yolov3-tiny", out_dir=tmp_path / "out", device="cpu", **kw)
     assert not (tmp_path / "out").exists()
 
 
-@pytest.mark.parametrize("name,error,match", [
-    ("m.stablehlo", ValueError, "pt2"), ("m.tflite", NotImplementedError, "item 7"),
-    ("m_savedmodel", NotImplementedError, "item 7")])
+# m.tflite and m_savedmodel are read now (tests/test_torch_tf_export.py)
+@pytest.mark.parametrize("name,error,match", [("m.stablehlo", ValueError, "pt2")])
 def test_backend_refuses_formats_it_does_not_read(name, error, match):
     with pytest.raises(error, match=match):
         MultiBackend(name, device="cpu")

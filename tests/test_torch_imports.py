@@ -25,7 +25,7 @@ IMAGE_LIBRARIES = {"cv2", "PIL"}
 DETECT_MODULES = ("data/loaders.py", "utils/plots.py", "models/loading.py", "models/ensemble.py",
                   "models/autoshape.py", "hub.py", "cli/__init__.py", "cli/detect.py", "cli/val.py", "cli/train.py")
 EXPORT_MODULES = ("export.py", "models/backend.py", "models/onnx_native.py", "models/onnx_runtime.py",
-                  "cli/benchmarks.py")
+                  "models/tf_graph.py", "cli/benchmarks.py")
 PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py")
 UTILITY_MODULES = ("utils/env.py", "utils/checks.py", "utils/profiling.py", "utils/plots.py")
 PLOT_LIBRARIES = {"matplotlib", "seaborn", "pandas"}  # optional: imported inside the functions that draw
@@ -115,19 +115,23 @@ def test_host_import_loads_no_jax_cv2_pil_or_sdk():
 def test_roadmap_items_cited_are_open():
     """Every "ROADMAP.md queue 1 item N" in the port (code, comments and
     messages, chip_smoke.py too) names an item that ROADMAP.md's queue 1
-    still lists under that number."""
+    still lists under that number. Queue 1 may be empty, and then no
+    citation may be left."""
     import re
 
+    def citations(text):
+        text = re.sub(r'"\s*\n\s*f?"', "", text)  # join implicitly concatenated string literals
+        return [int(n) for n in re.findall(r"ROADMAP\.md\s+queue\s+1,?\s+item\s+(\d+)", re.sub(r"\s+", " ", text))]
+
+    # the search finds a citation split over lines and string literals
+    assert citations('raise X("not ported (ROADMAP.md "\n    "queue 1 item 9)")') == [9]
     roadmap = (ROOT / "ROADMAP.md").read_text()
     queue = roadmap.split("### 1. Modules to port", 1)[1].split("\n### 2.", 1)[0]
     open_items = {int(n) for n in re.findall(r"^(\d+)\. \*\*", queue, flags=re.M)}
-    assert open_items, "ROADMAP.md queue 1 lists no open item"
     cited = {}
     for path in PORT_FILES:
-        text = re.sub(r'"\s*\n\s*f?"', "", path.read_text())  # join implicitly concatenated string literals
-        for n in re.findall(r"ROADMAP\.md\s+queue\s+1,?\s+item\s+(\d+)", re.sub(r"\s+", " ", text)):
-            cited.setdefault(int(n), []).append(str(path.relative_to(ROOT)))
-    assert cited, "no citation found"
+        for n in citations(path.read_text()):
+            cited.setdefault(n, []).append(str(path.relative_to(ROOT)))
     stale = {n: files for n, files in cited.items() if n not in open_items}
     assert not stale, f"cited items {stale} are not open in ROADMAP.md queue 1 (open: {sorted(open_items)})"
 

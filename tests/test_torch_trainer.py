@@ -123,11 +123,13 @@ def test_validator_builds_its_loader_like_jax(runs):
 
 # plots are ported: noplots=False is the default (tests/test_torch_plot_hooks.py)
 # upload_dataset and entity go to the W&B sink (tests/test_torch_loggers.py holds them to the JAX train())
-@pytest.mark.parametrize("option,item", [("s2d_stem", "item 6")])
-def test_unported_options_raise(option, item):
-    value = "team" if option == "entity" else True
-    with pytest.raises(NotImplementedError, match=item):
-        train("unused.yaml", device="cpu", **{option: value})
+@pytest.mark.parametrize("option,item", [("s2d_stem", "tiny's maxpool stem is not")])
+def test_s2d_stem_on_tiny_raises_jax_value_error(runs, tmp_path, option, item):
+    """s2d_stem runs (tests/test_torch_layout.py); on yolov3-tiny's maxpool
+    stem it raises the JAX train()'s ValueError."""
+    _, yaml_file = runs
+    with pytest.raises(ValueError, match=item):
+        train(yaml_file, cfg="yolov3-tiny", device="cpu", save_dir=tmp_path / "run", noplots=True, **{option: True})
 
 
 def test_sync_bn_is_accepted_as_a_no_op(tmp_path, monkeypatch):

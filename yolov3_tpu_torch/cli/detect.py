@@ -4,8 +4,9 @@
     python -m yolov3_tpu_torch.cli.detect --weights runs/train/exp/weights/best --device cpu
 
 `--weights`: a port checkpoint directory, a reference `.pt`, a cfg name
-(seeded random weights), or an exported `.pt2` / `.onnx` (export.py; run
-through `models.backend.MultiBackend`); several native weights make a
+(seeded random weights), or an exported `.pt2`, `.onnx`, `*_savedmodel` or
+`.tflite` (export.py; run through `models.backend.MultiBackend`, the
+TensorFlow formats on the host); several native weights make a
 concat-NMS Ensemble. `--source`: an
 image file, a directory, a glob, a `.txt` list, a video file, a webcam id /
 stream URL (cv2 needed) or `screen` (mss needed); the default is the
@@ -44,8 +45,9 @@ DEFAULT_SOURCE = str(Path(__file__).resolve().parents[1] / "data" / "images")
 
 
 def exported_format(weights):
-    """The exported-artifact format of `weights` ("pt2" or "onnx", MultiBackend's
-    sniff), or None for native weights; a format the port does not read raises."""
+    """The exported-artifact format of `weights` ("pt2", "savedmodel", "tflite"
+    or "onnx", MultiBackend's sniff), or None for native weights; a format the
+    port does not read raises."""
     fmt = MultiBackend._sniff(Path(str(weights)))
     return fmt if fmt in EXPORTED else None
 
@@ -261,7 +263,7 @@ def parse_opt(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--weights", type=str, nargs="+", default="yolov3-tiny",
                         help="checkpoint dir(s), reference .pt file(s), model cfg name, or one exported .pt2 / "
-                             ".onnx; several -> concat-NMS ensemble")
+                             ".onnx / _savedmodel / .tflite; several -> concat-NMS ensemble")
     parser.add_argument("--source", type=str, default=DEFAULT_SOURCE, help="file/dir/URL/glob/.txt/screen/0(webcam)")
     parser.add_argument("--data", type=str, default=None, help="(optional) dataset.yaml for names")
     parser.add_argument("--imgsz", "--img", "--img-size", nargs="+", type=int, default=[640], help="inference size")

@@ -14,8 +14,10 @@ with its rank (train.loop.train; parallel/mesh.py):
 so `--sync-bn` is accepted and changes nothing. `--resume comet://<path>`
 restores the experiment's checkpoint and options through Comet
 (utils/loggers/comet_utils.py); `--entity` and `--upload_dataset` go to
-W&B. Not ported, and raising: `--s2d-stem` (ROADMAP.md queue 1 item 6).
-The run writes its plots unless `--noplots`
+W&B. `--s2d-stem` is the JAX package's space-to-depth stem, a TPU layout
+of the same function: the port keeps the flag and computes the plain
+layout, and raises the JAX package's ValueError for a model whose stem is
+not eligible (yolov3-tiny's). The run writes its plots unless `--noplots`
 (utils/plots.py; each needs matplotlib, and is skipped with one log line
 on a host without it).
 """
@@ -44,7 +46,7 @@ def parse_opt(known=False, argv=None):
     parser.add_argument("--optimizer", type=str, choices=["sgd", "adam", "adamw", "rmsprop"], default="sgd")
     parser.add_argument("--quad", action="store_true", help="quad collate: 4 images stitched per sample")
     parser.add_argument("--remat", action="store_true", help="recompute activations in the backward")
-    parser.add_argument("--s2d-stem", action="store_true", help="space-to-depth stem (a TPU layout; not ported: raises)")
+    parser.add_argument("--s2d-stem", action="store_true", help="space-to-depth stem (a TPU layout of the same function; the port computes the plain layout)")
     parser.add_argument("--rect", action="store_true", help="rectangular training (aspect-ratio batches)")
     parser.add_argument("--noplots", action="store_true", help="save no plot image artifacts")
     parser.add_argument("--label-smoothing", type=float, default=0.0, help="label smoothing epsilon")

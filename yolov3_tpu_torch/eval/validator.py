@@ -117,7 +117,7 @@ def run(
         raise TypeError(f"validator.run: model is a {type(model).__name__}; it takes yolov3_tpu_torch's "
                         "DetectionModel, an Ensemble or a MultiBackend (exported artifacts)")
     if isinstance(model, MultiBackend) and model.has_nms:
-        raise ValueError("validator.run: this pt2 was exported with nms=True (serving NMS at conf 0.25); "
+        raise ValueError("validator.run: this artifact was exported with nms=True (serving NMS at conf 0.25); "
                          "validate an artifact exported without nms")
     native = isinstance(model, DetectionModel)
     if not native:
@@ -303,7 +303,7 @@ def make_forward(model, conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30
     decode_only: return the decoded predictions (B, N, 5+nc) and stop there.
     mesh: a parallel.mesh.Mesh to shard each batch over (see `run`).
     An Ensemble's or a MultiBackend's decoded predictions come from calling it
-    (a MultiBackend of a pt2 exported with NMS cannot serve: its NMS is not
+    (a MultiBackend of an artifact exported with NMS cannot serve: its NMS is not
     the val-grade one)."""
     from yolov3_tpu_torch.models.backend import MultiBackend
     from yolov3_tpu_torch.models.ensemble import Ensemble

@@ -1,12 +1,14 @@
 """Model export (yolov3_tpu/export.py, reference export.py:164-653).
 
-    python -m yolov3_tpu_torch.export --weights <checkpoint dir | .pt | cfg> --include pt2 onnx \
-        [--nms] [--half] [--dynamic] [--device cpu]
+    python -m yolov3_tpu_torch.export --weights <checkpoint dir | .pt | cfg> --include pt2 onnx savedmodel tflite \
+        [--nms] [--half] [--dynamic] [--int8 --data dataset.yaml] [--device cpu]
 
 | format     | produces                          | read back by                         |
 |------------|-----------------------------------|--------------------------------------|
 | checkpoint | a port checkpoint dir, stripped   | `models.loading.load_weights`        |
 | pt2        | `<name>.pt2`, a `torch.export`ed program | `models.backend.MultiBackend`  |
+| savedmodel | `<name>_savedmodel/`, a TF SavedModel (models/tf_graph.py) | `MultiBackend` (TensorFlow) |
+| tflite     | `<name>.tflite` / `<name>-int8.tflite` from the SavedModel | `MultiBackend` (LiteRT / tf.lite) |
 | onnx       | `<name>.onnx` (models/onnx_native.py) | `MultiBackend` (models/onnx_runtime.py) |
 
 `pt2` takes the place of the JAX package's `stablehlo`: the serving
@@ -18,10 +20,17 @@ launches the kernel on the card. A program is traced on the device it is
 exported on; `MultiBackend` moves it to its own. Every exported artifact
 has a `<name>.meta.json` sidecar ({stride, names, imgsz}, the JAX keys).
 
+The TensorFlow formats are the same serving function as a TensorFlow graph
+that models/tf_graph.py writes from the spec and the folded weights (the
+JAX package converts its function with jax2tf), NMS included with `nms=True`;
+`tflite` converts the SavedModel, and `--int8` quantizes it after
+calibrating on `--data`'s val images (`_calibration_batches`). They need
+tensorflow, imported only when they are exported or read, and run on the
+host: TensorFlow runs no CUDA kernel of this package. `export_onnx_tf` is the
+JAX package's second ONNX leg, tf2onnx over the SavedModel.
+
 `stablehlo` raises: the port's runtime never imports JAX, so its format
-is `pt2`. `savedmodel`, `tflite`, `--int8` and `--data` (int8 calibration)
-raise before anything is exported: they need a TensorFlow graph emitter
-(ROADMAP.md queue 1 item 7).
+is `pt2`.
 """
 
 from __future__ import annotations
@@ -31,13 +40,13 @@ import json
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from yolov3_tpu_torch.utils.general import LOGGER, colorstr, file_size
 
-EXPORT_FORMATS = ("checkpoint", "pt2", "onnx")
-TF_FORMATS = "the TensorFlow formats (savedmodel, tflite, int8 calibration) are not ported yet (ROADMAP.md queue 1 item 7)"
+EXPORT_FORMATS = ("checkpoint", "pt2", "savedmodel", "tflite", "onnx")
 
 
 def try_export(fn):
@@ -134,16 +143,119 @@ def export_onnx(model, file, imgsz=640, batch=1, include_nms=False, dynamic=Fals
     return out
 
 
-def check_formats(include, nms=False, int8=False, data=None):
+@try_export
+def export_savedmodel(model, file, imgsz=640, batch=1, include_nms=False, dynamic=False):
+    """`<file>_savedmodel/`: a TF SavedModel whose `serve` is the serving
+    function (`ServingModule`'s, NMS included with include_nms) as a
+    TensorFlow graph written by models/tf_graph.py, on uint8
+    (batch, imgsz, imgsz, 3); dynamic=True makes the batch dimension None
+    (the reference's --dynamic). Needs tensorflow."""
+    import tensorflow as tf
+
+    from yolov3_tpu_torch.models.tf_graph import serving_tf_module
+
+    module = serving_tf_module(model, imgsz, None if dynamic else int(batch), include_nms)
+    out = str(Path(file).with_suffix("")) + "_savedmodel"
+    tf.saved_model.save(module, out)
+    _write_metadata(Path(out), model, imgsz)
+    return out
+
+
+def _calibration_batches(imgsz, batch, data=None, n=32, stride=32):
+    """Uint8 NHWC batches for post-training quantization (the JAX
+    package's, in the same bytes): with a dataset YAML, its val images (else
+    train), the first n * batch, read by the port's decoders, letterboxed to
+    imgsz with auto=False and flipped BGR -> RGB; an image that does not
+    decode is skipped. Without data, or with no readable image, random uint8
+    from default_rng(0), with the JAX package's warning. A short last batch
+    repeats its last image."""
+    from yolov3_tpu_torch.data import image_ops
+    from yolov3_tpu_torch.data.augment import letterbox
+    from yolov3_tpu_torch.data.dataset_yaml import check_dataset
+    from yolov3_tpu_torch.data.datasets import list_images
+
+    imgs = []
+    if data is not None:
+        d = check_dataset(data)
+        for f in list_images(d.get("val") or d["train"])[: n * batch]:
+            try:
+                im = image_ops.imread(f)
+            except (OSError, ValueError):  # what cv2.imread reads as None
+                continue
+            im = letterbox(im, imgsz, stride=stride, auto=False)[0]
+            imgs.append(im[:, :, ::-1])  # BGR -> RGB
+    if not imgs:
+        if data is not None:
+            LOGGER.warning("int8 calibration: no readable images found; using random data")
+        else:
+            LOGGER.warning("int8 calibration on random data — pass a dataset YAML for representative ranges")
+        rng = np.random.default_rng(0)
+        imgs = [rng.integers(0, 255, (imgsz, imgsz, 3), dtype=np.uint8) for _ in range(n * batch)]
+    for i in range(0, max(len(imgs) - batch + 1, 1), batch):
+        chunk = imgs[i : i + batch]
+        while len(chunk) < batch:
+            chunk.append(chunk[-1])
+        yield np.ascontiguousarray(np.stack(chunk).astype(np.uint8))
+
+
+@try_export
+def export_tflite(model, file, imgsz=640, batch=1, include_nms=False, int8=False, data=None):
+    """`<file>.tflite` converted from the SavedModel (TFLiteConverter, the
+    TFLite builtins plus select TF ops). int8=True: post-training
+    quantization (Optimize.DEFAULT) calibrated on `_calibration_batches` of
+    `data`, written as `<file>-int8.tflite`; ops without an int8 kernel stay
+    float. The static-batch SavedModel it converts is written to a temporary
+    directory beside `file` and removed, so a `<file>_savedmodel/` exported
+    in the same run (dynamic or not) is left as it was; the JAX package
+    overwrites it (yolov3_tpu/export.py:195). Needs tensorflow."""
+    import tempfile
+
+    import tensorflow as tf
+
+    out = Path(file).with_suffix("")
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        sm = export_savedmodel(model, Path(tmp) / out.name, imgsz, batch, include_nms)
+        assert sm is not None, "savedmodel export failed"
+        converter = tf.lite.TFLiteConverter.from_saved_model(str(sm))
+        converter.target_spec.supported_ops = [tf.lite.OpsSet.TFLITE_BUILTINS, tf.lite.OpsSet.SELECT_TF_OPS]
+        suffix = ".tflite"
+        if int8:
+            converter.optimizations = [tf.lite.Optimize.DEFAULT]
+            converter.representative_dataset = lambda: (
+                [b] for b in _calibration_batches(imgsz, batch, data, stride=int(model.stride)))
+            suffix = "-int8.tflite"
+        tflite = converter.convert()
+    out = out.parent / (out.name + suffix)
+    out.write_bytes(tflite)
+    _write_metadata(out, model, imgsz)
+    return out
+
+
+@try_export
+def export_onnx_tf(model, file, imgsz=640, batch=1, include_nms=False):
+    """`<file>.onnx` by tf2onnx over the SavedModel, the JAX package's second
+    ONNX leg (needs tensorflow and tf2onnx; the NMS rides along with
+    include_nms). The first leg is `export_onnx`, which needs neither."""
+    import subprocess
+    import sys
+
+    import tf2onnx  # noqa: F401 — its converter runs in a subprocess; fail here when it is missing
+
+    sm = export_savedmodel(model, file, imgsz, batch, include_nms)
+    assert sm is not None, "savedmodel export failed"
+    out = Path(file).with_suffix(".onnx")
+    subprocess.run([sys.executable, "-m", "tf2onnx.convert", "--saved-model", str(sm), "--output", str(out)],
+                   check=True)
+    _write_metadata(out, model, imgsz)
+    return out
+
+
+def check_formats(include, nms=False):
     """Refuse what the port cannot export, before anything is exported."""
-    if int8 or data is not None:
-        raise NotImplementedError(f"--int8 / --data: {TF_FORMATS}")
     for fmt in include:
         if fmt == "stablehlo":
             raise ValueError("stablehlo needs JAX, which the port never imports; the port's program format is "
                              "'pt2' (torch.export)")
-        if fmt in ("savedmodel", "tflite"):
-            raise NotImplementedError(f"{fmt}: {TF_FORMATS}")
         if fmt not in EXPORT_FORMATS:
             raise ValueError(f"unknown export format {fmt!r}; choose from {EXPORT_FORMATS}")
     if nms and "onnx" in include:
@@ -155,11 +267,12 @@ def run(weights="yolov3-tiny", include=("checkpoint", "pt2"), imgsz=640, batch=1
         int8=False, data=None, half=False, dynamic=False, device=None):
     """Export a model to the requested formats; returns {format: path or None}.
     device=None means "cuda" (and raises without one); a pt2 runs on the
-    device it was exported on unless `MultiBackend` moves it."""
+    device it was exported on unless `MultiBackend` moves it. The TensorFlow
+    formats take a host copy of the weights; int8 and data apply to tflite."""
     from yolov3_tpu_torch.models.detection import optimize_for_inference
     from yolov3_tpu_torch.models.loading import load_weights
 
-    check_formats(include, nms, int8, data)
+    check_formats(include, nms)
     model = load_weights(weights, device=device)
     if half:  # fused bf16 artifact (the reference exports fused fp16 with --half, export.py:719)
         model = optimize_for_inference(model, bf16=True)
@@ -172,6 +285,10 @@ def run(weights="yolov3-tiny", include=("checkpoint", "pt2"), imgsz=640, batch=1
             results[fmt] = export_checkpoint(model, base, imgsz)
         elif fmt == "pt2":
             results[fmt] = export_pt2(model, base, imgsz, batch, nms, dynamic)
+        elif fmt == "savedmodel":
+            results[fmt] = export_savedmodel(model, base, imgsz, batch, nms, dynamic)
+        elif fmt == "tflite":
+            results[fmt] = export_tflite(model, base, imgsz, batch, nms, int8, data)
         else:
             results[fmt] = export_onnx(model, base, imgsz, batch, nms, dynamic)
     return results
@@ -183,12 +300,12 @@ def main(argv=None):
     p.add_argument("--include", nargs="+", default=["checkpoint", "pt2"])
     p.add_argument("--imgsz", type=int, default=640)
     p.add_argument("--batch", type=int, default=1)
-    p.add_argument("--nms", action="store_true", help="embed NMS in the exported program (pt2)")
+    p.add_argument("--nms", action="store_true", help="embed NMS in the exported program (pt2, savedmodel, tflite)")
     p.add_argument("--out-dir", default="runs/export")
-    p.add_argument("--int8", action="store_true", help="TFLite INT8 quantization (not ported: raises)")
-    p.add_argument("--data", default=None, help="dataset YAML for int8 calibration (not ported: raises)")
+    p.add_argument("--int8", action="store_true", help="TFLite INT8 post-training quantization")
+    p.add_argument("--data", default=None, help="dataset YAML for int8 calibration images")
     p.add_argument("--half", action="store_true", help="export fused bf16 weights")
-    p.add_argument("--dynamic", action="store_true", help="symbolic batch dimension (pt2, onnx)")
+    p.add_argument("--dynamic", action="store_true", help="symbolic batch dimension (pt2, savedmodel, onnx)")
     p.add_argument("--device", default="", help="cuda (the default) or cpu")
     a = p.parse_args(argv)
     return run(a.weights, a.include, a.imgsz, a.batch, a.nms, a.out_dir, a.int8, a.data, a.half, a.dynamic,

@@ -6,14 +6,19 @@
 | checkpoint dir            | the port's DetectionModel, folded                 |
 | reference `*.pt`          | the same, from the torch weights                  |
 | `*.pt2`                   | the `torch.export`ed program (export.py)          |
+| `*_savedmodel` dir        | TensorFlow's SavedModel loader, its `serve`       |
+| `*.tflite`                | the LiteRT interpreter (`ai_edge_litert`, else `tf.lite`) |
 | `*.onnx`                  | the in-tree executor (models/onnx_runtime.py)     |
 | a cfg name (yolov3-tiny)  | seeded random weights                             |
 
 `MultiBackend(weights)(imgs_u8)` returns the decoded (B, N, 5 + nc) float32
-predictions on the backend's device, whatever the artifact; a `.pt2`
-exported with `nms=True` returns its (out, n). An exported artifact's
-stride and names come from the `.meta.json` sidecar export.py writes; one
-without it raises. `.stablehlo` (JAX), `*_savedmodel` and `.tflite` raise,
+predictions on the backend's device, whatever the artifact; a `.pt2` or a
+SavedModel exported with `nms=True` returns its (out, n) (`has_nms`). The
+TensorFlow formats run on the host, the artifact's own runtime (TensorFlow
+runs no kernel of this package): the images go there and the result comes
+back to the backend's device. A dynamic-batch TFLite file is resized to each
+batch. An exported artifact's stride and names come from the `.meta.json`
+sidecar export.py writes; one without it raises. `.stablehlo` (JAX) raises,
 naming what the port reads instead.
 """
 
@@ -22,12 +27,13 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from yolov3_tpu_torch.ops import nms_cuda  # noqa: F401 — registers greedy_nms, which a pt2 with NMS calls
 from yolov3_tpu_torch.utils.general import LOGGER, select_device
 
-EXPORTED = ("pt2", "onnx")
+EXPORTED = ("pt2", "savedmodel", "tflite", "onnx")
 
 
 class MultiBackend:
@@ -70,6 +76,14 @@ class MultiBackend:
             self.has_nms = len(program.graph_signature.user_outputs) == 2
             module = program.module()
             self._call = module
+        elif self.format == "savedmodel":
+            import tensorflow as tf
+
+            m = tf.saved_model.load(str(w))
+            self.has_nms = isinstance(m.serve.concrete_functions[0].structured_outputs, (tuple, list))
+            self._call = lambda im: self._from_host(m.serve(tf.constant(im.cpu().numpy())))
+        elif self.format == "tflite":
+            self._call = self._tflite(w)
         else:
             from yolov3_tpu_torch.models.onnx_runtime import OnnxModel
 
@@ -84,11 +98,45 @@ class MultiBackend:
         if w.suffix == ".stablehlo":
             raise ValueError(f"{w}: a StableHLO artifact needs JAX, which the port never imports; export the "
                              "model with yolov3_tpu_torch.export --include pt2 (or onnx) and load that")
-        if w.suffix == ".tflite" or str(w).endswith("_savedmodel"):
-            raise NotImplementedError(f"{w}: TensorFlow artifacts are not ported yet "
-                                      "(ROADMAP.md queue 1 item 7); the port reads .pt2, .onnx, checkpoints "
-                                      "and reference .pt")
-        return {".pt": "torch_pt", ".pt2": "pt2", ".onnx": "onnx"}.get(w.suffix, "config")
+        if w.is_dir() and str(w).endswith("_savedmodel"):
+            return "savedmodel"
+        return {".pt": "torch_pt", ".pt2": "pt2", ".onnx": "onnx", ".tflite": "tflite"}.get(w.suffix, "config")
+
+    def _from_host(self, out):
+        """TensorFlow's result(s) as tensors on this backend's device."""
+        if isinstance(out, (tuple, list)):
+            return tuple(self._from_host(o) for o in out)
+        return torch.from_numpy(np.asarray(out)).to(self.device)
+
+    def _tflite(self, w):
+        """The interpreter's call on uint8 images; a batch of another size
+        resizes the input first (a dynamic-batch artifact)."""
+        try:
+            from ai_edge_litert.interpreter import Interpreter
+        except ImportError:
+            import tensorflow as tf
+
+            Interpreter = tf.lite.Interpreter
+        interp = Interpreter(model_path=str(w))
+        interp.allocate_tensors()
+        self.has_nms = len(interp.get_output_details()) == 2
+
+        def run(im):
+            inp = interp.get_input_details()[0]
+            x = im.cpu().numpy()
+            if list(x.shape) != list(inp["shape"]):
+                interp.resize_tensor_input(inp["index"], x.shape)
+                interp.allocate_tensors()
+                inp = interp.get_input_details()[0]
+            interp.set_tensor(inp["index"], x)
+            interp.invoke()
+            outs = [interp.get_tensor(o["index"]) for o in interp.get_output_details()]
+            if self.has_nms:  # (out, n): n is the int32 output
+                outs.sort(key=lambda a: a.dtype == np.int32)
+                return self._from_host(tuple(outs))
+            return self._from_host(outs[0])
+
+        return run
 
     def _load_pt2(self, w):
         """The exported program on this backend's device. A program traced on
@@ -112,7 +160,7 @@ class MultiBackend:
     @torch.inference_mode()
     def __call__(self, imgs_u8):
         """imgs_u8: (B, H, W, 3) uint8 array or tensor -> decoded (B, N, 5 + nc)
-        float32 on this backend's device ((out, n) for a pt2 with NMS)."""
+        float32 on this backend's device ((out, n) for an artifact with NMS)."""
         return self._call(torch.as_tensor(imgs_u8).to(self.device))
 
     def warmup(self, shape=(1, 640, 640, 3)):

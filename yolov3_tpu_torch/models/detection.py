@@ -55,14 +55,37 @@ def _build_layer(spec: ModelSpec, ls, fused):
     return nn.Sequential(*(cls(c1 if r == 0 else c2, *ls.args, **kw) for r in range(ls.n)))
 
 
+def s2d_eligible(spec, error=None) -> bool:
+    """True when the spec's stem is [Conv k3 s1, Conv k3 s2] (yolov3,
+    yolov3-spp), the stem the JAX package's space-to-depth layout re-expresses;
+    yolov3-tiny's maxpool stem is not. With `error`, an ineligible spec raises
+    ValueError(error.format(name=spec.name, stem="[<op><args>, <op><args>]"))
+    instead: each caller words it as its JAX counterpart does."""
+    l0, l1 = spec.layers[0], spec.layers[1]
+    ok = (l0.op == "Conv" and tuple(l0.args[1:3]) == (3, 1)
+          and l1.op == "Conv" and tuple(l1.args[1:3]) == (3, 2))
+    if error is not None and not ok:
+        raise ValueError(error.format(name=spec.name, stem=f"[{l0.op}{l0.args}, {l1.op}{l1.args}]"))
+    return ok
+
+
 class DetectionModel(nn.Module):
     """Layer graph of a ModelSpec. `fused=True` builds the inference form
-    with every Conv+BN folded (see `fuse`)."""
+    with every Conv+BN folded (see `fuse`).
 
-    def __init__(self, spec: ModelSpec, fused=False):
+    `s2d_stem=True` is the JAX package's space-to-depth stem
+    (yolov3_tpu/models/detection.py:61-110), a TPU layout that re-expresses
+    the stem on the same parameters and computes the same function. The port
+    keeps the flag and computes the plain layout; a spec whose stem is not
+    eligible (`s2d_eligible`) raises the JAX package's ValueError."""
+
+    def __init__(self, spec: ModelSpec, fused=False, s2d_stem=False):
         super().__init__()
+        if s2d_stem:
+            s2d_eligible(spec, "s2d_stem needs a [Conv k3 s1, Conv k3 s2] stem; {name} is not eligible")
         self.spec = spec
         self.fused = fused
+        self.s2d_stem = bool(s2d_stem)
         # the YAML `activation:` applies to this model's Convs only: set the
         # default while they are built, then restore it
         prev = activations._DEFAULT_ACT[0]
@@ -79,12 +102,16 @@ class DetectionModel(nn.Module):
 
     @classmethod
     def from_config(cls, cfg="yolov3-tiny", seed=0, device=None, dtype=torch.float32, ch=3, nc=None,
-                    anchors=None):
+                    anchors=None, s2d_stem=False):
         """Build from a YAML config / name / dict with a seeded random init
         (a CPU `torch.Generator`, so the weights do not depend on the device).
-        device=None means "cuda" and raises without one."""
+        device=None means "cuda" and raises without one. `s2d_stem`: see the
+        class; the weights are the same with and without it."""
+        spec = parse_spec(cfg, ch=ch, nc=nc, anchors=anchors)
+        if s2d_stem:
+            s2d_eligible(spec, "s2d_stem needs a [Conv k3 s1, Conv k3 s2] stem; {name} has {stem}")
         device = select_device(device)
-        model = cls(parse_spec(cfg, ch=ch, nc=nc, anchors=anchors))
+        model = cls(spec, s2d_stem=s2d_stem)
         model.init_weights(torch.Generator().manual_seed(seed))
         return model.to(device=device, dtype=dtype, memory_format=torch.channels_last).eval()
 
@@ -131,14 +158,15 @@ class DetectionModel(nn.Module):
     def num_params(self):
         return sum(p.numel() for p in self.parameters())
 
-    def forward(self, x, raw=False, remat=False, remat_segment=6, remat_until=-1):
+    def forward(self, x, raw=False, remat=False, remat_segment=6, remat_until=-1, raw_pad=0):
         """x: (B, H, W, C) NHWC images in [0, 1].
 
         raw=False: tuple of per-scale (B, na, ny, nx, no) maps, float32 in
         eval mode and in the compute dtype in train mode (the loss upcasts
         after its gather).
         raw=True: tuple of per-scale (B, ny, nx, na*no) maps in the model's
-        dtype, the serving layout `decode_topk_nhwc` reads.
+        dtype, the serving layout `decode_topk_nhwc` reads; with `raw_pad=P`
+        the padded layout (B, ny, nx, na*P) of `Detect` (raw_pad implies raw).
 
         remat=True (with autograd on): the body layers below `remat_until`
         (-1: all of them) run in checkpointed segments of `remat_segment`
@@ -163,7 +191,7 @@ class DetectionModel(nn.Module):
         out, saved = _run_layers(body[cut:], out, saved, prev, self.spec.save)
         prev = self.spec.layers[-2].i
         detect = self.spec.layers[-1]
-        return self.model[-1]([out if j == prev else saved[j] for j in detect.f], raw=raw)
+        return self.model[-1]([out if j == prev else saved[j] for j in detect.f], raw=raw, raw_pad=raw_pad)
 
     def predict(self, x, augment=False):
         """Decoded predictions (B, N, 5 + nc) float32 of NHWC images in [0, 1];
@@ -171,6 +199,15 @@ class DetectionModel(nn.Module):
         if augment:
             return predict_augmented(self, x)
         return decode_predictions(self(x), self.anchors_px, self.spec.strides)
+
+    def serving_module(self, pad_lanes=0):
+        """This model with the raw NHWC head of the fast serving path
+        (yolov3_tpu/models/detection.py serving_module): a module whose
+        forward(x) returns what forward(x, raw=True) does, or with
+        `pad_lanes=P` the padded head layout (`Detect` raw_pad), which
+        `decode_topk_nhwc(padded_lanes=P)` reads. It shares this model's
+        parameters."""
+        return _ServingGraph(self, pad_lanes)
 
     def set_bn_stats_fn(self, fn):
         """Route every train-mode conv+BN-statistics call (nn.modules.Conv)
@@ -187,10 +224,23 @@ class DetectionModel(nn.Module):
             return self
         sd, _ = fuse_state_dict(self.state_dict())
         with torch.device("meta"):
-            fused = DetectionModel(self.spec, fused=True)
+            fused = DetectionModel(self.spec, fused=True, s2d_stem=self.s2d_stem)
         fused.load_state_dict(sd, assign=True)
         fused.names = dict(self.names)
         return fused.eval()
+
+
+class _ServingGraph(nn.Module):
+    """`DetectionModel.serving_module`: the model's forward with the raw (or
+    padded) head."""
+
+    def __init__(self, model, pad_lanes=0):
+        super().__init__()
+        self.model = model
+        self.pad_lanes = int(pad_lanes)
+
+    def forward(self, x):
+        return self.model(x, raw=True, raw_pad=self.pad_lanes)
 
 
 def _run_layers(layers, out, saved, prev, save):

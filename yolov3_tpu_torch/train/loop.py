@@ -48,8 +48,11 @@ W&B as an artifact, and `bbox_interval` paces the val mosaics sent.
 `utils.checks.check_bf16` passes (under a process group, rank 0's verdict),
 float32 on the CPU.
 
-Not ported (raises NotImplementedError): `s2d_stem`
-(ROADMAP.md queue 1 item 6).
+`s2d_stem=True` is the JAX package's space-to-depth stem (its loop.py:152-162),
+a TPU layout of the same function on the same parameters: the model keeps
+the flag and computes the plain layout, so checkpoints, resume and EMA are
+as without it. A model whose stem is not [Conv k3 s1, Conv k3 s2]
+(yolov3-tiny's maxpool stem) raises the JAX package's ValueError.
 """
 
 from __future__ import annotations
@@ -68,7 +71,7 @@ from yolov3_tpu_torch.data.dataset_yaml import check_dataset
 from yolov3_tpu_torch.data.datasets import DataLoader, DetectionDataset
 from yolov3_tpu_torch.eval import validator
 from yolov3_tpu_torch.eval.metrics import fitness
-from yolov3_tpu_torch.models.detection import DetectionModel
+from yolov3_tpu_torch.models.detection import DetectionModel, s2d_eligible
 from yolov3_tpu_torch.parallel import mesh as par
 from yolov3_tpu_torch.train.loss import LossConfig
 from yolov3_tpu_torch.train.optim import EarlyStopping, build_optimizer
@@ -141,13 +144,11 @@ def train(
     and raises without one; the CPU only when asked for). `entity`,
     `upload_dataset` and `bbox_interval` go to the tracker sinks (see the
     module docstring). `half=None` means bf16 autocast on the card where
-    `check_bf16` passes, float32 on the CPU. `s2d_stem` raises
-    NotImplementedError (ROADMAP.md queue 1 item 6). `resume=True`
-    continues the run in `save_dir` from weights/last, full or stripped.
+    `check_bf16` passes, float32 on the CPU. `s2d_stem`: see the module
+    docstring. `resume=True` continues the run in `save_dir` from
+    weights/last, full or stripped.
     Under a process group every rank calls it (see the module docstring).
     """
-    if s2d_stem:
-        raise NotImplementedError("train: the space-to-depth stem is not ported yet (ROADMAP.md queue 1 item 6)")
     device = par.rank_device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -206,6 +207,10 @@ def train(
     if half is None:  # the JAX package's AMP check (its loop.py:148); every rank takes rank 0's verdict
         half = par.broadcast_object(device.type == "cuda" and check_bf16(model))
     compute_dtype = torch.bfloat16 if half else torch.float32
+    if s2d_stem and not model.s2d_stem:
+        s2d_eligible(model.spec, "--s2d-stem needs a [Conv k3 s1, Conv k3 s2] stem; {name} is not eligible "
+                                 "(yolov3/yolov3-spp are; tiny's maxpool stem is not)")
+        model.s2d_stem = True  # the same parameters and function: the flag is all that changes
     stride = int(max(model.spec.strides))
     nl = model.spec.nl
     if batch_size == -1:  # AutoBatch (reference train.py:230-232)
