@@ -7,8 +7,9 @@ Phases, each printing its result on its own line:
   1. build every CUDA source of yolov3_tpu_torch/csrc/ with nvcc (sm_90a),
      one nvcc process each, all started together, and the host image ops
      (csrc/host_ops.cpp) with the C++ compiler beside them;
-  2. the greedy-NMS kernels against the plain version at the serving,
-     fallback and val-grade shapes (one per kernel): outputs equal; the time
+  2. the greedy-NMS kernels against the plain version at the serving
+     shapes of yolov3 and yolov3-tiny, the fallback and the val-grade shape
+     (one per kernel): outputs equal; the time
      of one step's dependent chain, from a run at one candidate a lane;
   3. the candidate-score kernel against its plain version on bf16 head
      outputs of yolov3@640 at batch 32 and at ragged, f16, f32 and unaligned
@@ -17,7 +18,7 @@ Phases, each printing its result on its own line:
      every stride-1 3x3 conv shape of yolov3, yolov3-spp, yolov3-tiny,
      yolov5s and yolov5s-transformer at 640 px and at small f32 and odd
      shapes; each row names the kernel it took and is run twice for equal
-     bits; yolov3's and yolov5s's shapes (batch 8, bf16) are timed beside two
+     bits; yolov3's, yolov5s's and yolov3-tiny's shapes (batch 8, bf16) are timed beside two
      library yardsticks, cuDNN's conv + var_mean over an
      f32 copy of y and over the bf16 y, by kernel time and by CUDA events;
   5. the serving path: full-width yolov3 (seeded random weights, detections
@@ -142,6 +143,18 @@ Phases, each printing its result on its own line:
      launches a step; and, on a host with tensorflow, a savedmodel and a
      tflite of the model read back through MultiBackend against the port's
      float32 decode (a host without it prints that they were not run).
+ 16. yolov3-spp and yolov3-tiny at their published widths (phase_family,
+     after 11): 62,998,749 and 8,852,366 parameters; each served as yolov3
+     is in 5 (32 requests through MicroBatcher(max_batch=32), K2 once a head
+     level (3, 2) and K1 once a device call, K1 once more on the fallback
+     batch, the rows against the plain score and NMS versions, K2 against
+     its plain version on each level's rows; K2's time per level), validated
+     as in 7 on 32 self-labelled 640x640 frames (f32 mAP50 >= 0.95, K1 once a
+     batch) and trained as in 8 for 1 + 3 steps (K3 33 and 9 launches a step);
+     ms per batch of 32 of both, in turns; then cli.detect.run() with its
+     defaults (yolov3-tiny over the sample images: K1 once an image, rows
+     equal to the plain NMS) and hub.load("yolov3_spp") on those images (one
+     K1 launch).
 The first lines also name the optional packages the host has (env:
 tensorboard, tensorflow, wandb, clearml, comet_ml, cv2, matplotlib).
 With `--kernel-times [ROOT]` it only times K3, K1 and K2 of the package under
@@ -276,7 +289,10 @@ def make_candidates(rng, B, K, device, nc=80):
     return [torch.from_numpy(a).to(device) for a in (boxes + cls[..., None] * 7680.0, boxes, scores, cls)]
 
 
-NMS_SHAPES = (("serving", 32, 448, 0.45), ("fallback", 4, 8192, 0.45), ("val", 2, 30000, 0.6))
+# (label, B, K, iou): the serving top-k of yolov3 (256 + 128 + 64) and of yolov3-tiny (256 + 128), the
+# full-decode fallback and the val grade
+NMS_SHAPES = (("serving", 32, 448, 0.45), ("tiny serving", 32, 384, 0.45), ("fallback", 4, 8192, 0.45),
+              ("val", 2, 30000, 0.6))
 NMS_KERNEL = "greedy_nms"  # in the name of each of csrc/nms.cu's kernels
 
 
@@ -611,7 +627,8 @@ def plant_under_topk(model, frames, k=(256, 128, 64), targets=(112.0, 28.0, 10.0
     half that scale's top-k above `conf`: a random yolov5's objectness moves
     with each frame as a whole (at 40x40 one frame in 32 had ten times the
     median above conf), and a frame past the top-k takes the full-decode
-    fallback. Returns the targets and the cells above conf by scale and frame."""
+    fallback. Returns the targets, the cells above conf by scale and frame, and
+    the gains and bias shifts planted."""
     detect = model.model[-1]
     base = [(c.weight.detach().clone(), c.bias.detach().clone()) for c in detect.m]
     targets = list(targets)
@@ -620,16 +637,17 @@ def plant_under_topk(model, frames, k=(256, 128, 64), targets=(112.0, 28.0, 10.0
             for conv, (w, b) in zip(detect.m, base):
                 conv.weight.copy_(w)
                 conv.bias.copy_(b)
-        plant_detections(model, base, *calibrate(model, frames, tuple(targets), conf))
+        gains, deltas = calibrate(model, frames, tuple(targets), conf)
+        plant_detections(model, base, gains, deltas)
         with torch.inference_mode():
             feats = model(torch.as_tensor(frames, device=model.device).float() / 255.0, raw=True)
         counts = []
         for f in feats:
             p = torch.sigmoid(f.float().reshape(f.shape[0], -1, detect.no))
             counts.append(((p[..., 4:5] * p[..., 5:]).amax(-1) > conf).sum(1).cpu().numpy())
-        over = [i for i, c in enumerate(counts) if c.max() > k[i] // 2]
+        over = [i for i, c in enumerate(counts) if c.max() > k[min(i, len(k) - 1)] // 2]
         if not over:
-            return targets, counts
+            return targets, counts, gains, deltas
         for i in over:
             targets[i] /= 2
     raise RuntimeError(f"chip_smoke: no targets keep every frame under half the top-k {k}: {targets}")
@@ -672,20 +690,42 @@ def profile_fast_path(infer, imgs, iters=3):
         print(f"profile kernel {t / iters / 1e3:.3f} ms  {name[:110]}", flush=True)
 
 
-def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32):
+SERVE_TARGETS = {8: 112.0, 16: 28.0, 32: 10.0}  # cells an image above conf 0.25 planted at each head stride
+SERVE_MAX_NMS = 8192  # the full-decode fallback's max_nms (serve._paths)
+
+
+def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32, label="main path", fit_frames=False):
+    """The serving path of `model` (any head, nl levels): detections planted
+    at SERVE_TARGETS by head stride (calibrated on the first 8 frames; with
+    `fit_frames`, on all of them, the targets halved until every frame is
+    under half each level's top-k: `plant_under_topk`), `n_requests` concurrent requests through
+    MicroBatcher(max_batch), then a dense batch that takes the full-decode
+    fallback. Launches over that run: K2 nl times and K1 once a device call,
+    and K1 once more for the fallback (K = min(8192, every anchor row)).
+    Then ms per batch, its profile and `check_fast_path`. `label` starts each
+    line printed."""
     from yolov3_tpu_torch.ops import nms as nms_module
     from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
     from yolov3_tpu_torch.ops.score_cuda import masked_scores
     from yolov3_tpu_torch.serve import MicroBatcher, build_batched_infer
 
+    nl, na = model.spec.nl, model.spec.na
     frames = rng.integers(0, 256, size=(n_requests, imgsz, imgsz, 3), dtype=np.uint8)
     base = [(c.weight.detach().clone(), c.bias.detach().clone()) for c in model.model[-1].m]
-    gains, deltas = calibrate(model, frames[:8])
-    plant_detections(model, base, gains, deltas)
+    targets = tuple(SERVE_TARGETS[s] for s in model.spec.strides)
+    if fit_frames:
+        targets, counts, gains, deltas = plant_under_topk(model, frames, targets=targets)
+        print(f"{label}: detections planted at targets {[round(t, 2) for t in targets]} cells an image by level; "
+              "above conf 0.25 (f32 eval) by level, median / max over the frames: "
+              + ", ".join(f"{int(np.median(c))} / {int(c.max())}" for c in counts), flush=True)
+    else:
+        gains, deltas = calibrate(model, frames[:8], targets=targets)
+        plant_detections(model, base, gains, deltas)
     infer = build_batched_infer(model)
     batcher = MicroBatcher(infer, max_batch=max_batch, batch_wait_ms=50.0)
     batcher.warmup(imgsz)
     torch.cuda.synchronize()
+    warm_fallbacks = infer.fallbacks  # the warm-up's zero frames may overflow a planted model's top-k
 
     # --- the main path: every launch from here to the count read is the path's own
     greedy_nms.launches = 0
@@ -694,6 +734,7 @@ def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32):
     with ThreadPoolExecutor(max_workers=n_requests) as pool:
         results = [f.result() for f in [pool.submit(batcher.submit, im) for im in frames]]
     serve_s = time.perf_counter() - t0
+    served_fallbacks = infer.fallbacks - warm_fallbacks
 
     # dense batch: scale 0's objectness far above conf, so its top-k overflows;
     # the fallback's batched_nms resolves greedy_nms in ops.nms, where it is
@@ -717,20 +758,27 @@ def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32):
     launches = {"greedy_nms": greedy_nms.launches, "masked_scores": masked_scores.launches}
     # --- end of the main path
 
-    print(f"main path: {n_requests} requests in {serve_s:.3f} s = {n_requests / serve_s:.1f} img/s "
-          f"({batcher.calls} device calls, {infer.fallbacks} fallbacks), launches {launches}", flush=True)
-    check(batcher.requests == n_requests, f"batcher served {batcher.requests} of {n_requests}")
+    print(f"{label}: {n_requests} requests in {serve_s:.3f} s = {n_requests / serve_s:.1f} img/s "
+          f"({batcher.calls} device calls, {served_fallbacks} fallbacks), launches {launches}", flush=True)
+    check(batcher.requests == n_requests, f"{label}: batcher served {batcher.requests} of {n_requests}")
     counts = []
     for dets, n in results:
-        check(dets.shape == (n, 6) and np.isfinite(dets).all(), "request result malformed")
-        check((dets[:, 4] > 0).all() and (np.diff(dets[:, 4]) <= 0).all(), "rows not valid-first by score")
+        check(dets.shape == (n, 6) and np.isfinite(dets).all(), f"{label}: request result malformed")
+        check((dets[:, 4] > 0).all() and (np.diff(dets[:, 4]) <= 0).all(),
+              f"{label}: rows not valid-first by score")
         counts.append(n)
-    check(max(counts) > 0, "no request got a detection")
-    check(launches["greedy_nms"] > 0 and launches["masked_scores"] > 0, f"a kernel never launched: {launches}")
-    check(dense_infer.fallbacks == 1, "the dense batch did not take the full-decode fallback")
-    check(seen_k == [8192], f"fallback NMS ran at K={seen_k}, expected [8192]")
-    print(f"requests: n per image mean {np.mean(counts):.1f}, max {max(counts)}; dense batch fell back, "
-          f"K1 at K={seen_k[0]}, n mean {float(dense_n.float().mean()):.1f}", flush=True)
+    check(max(counts) > 0, f"{label}: no request got a detection")
+    check(served_fallbacks == 0, f"{label}: a served batch took the full-decode fallback")
+    check(dense_infer.fallbacks == 1, f"{label}: the dense batch did not take the full-decode fallback")
+    # every device call and the dense batch's fast path: K2 once a level, K1 once; the fallback: K1 once more
+    calls = batcher.calls + 1
+    want = {"greedy_nms": calls + 1, "masked_scores": nl * calls}
+    check(launches == want, f"{label}: launches {launches} in {batcher.calls} device calls and a fallback batch, "
+                            f"expected {want} (K2 {nl} and K1 1 a call, K1 1 more on the fallback)")
+    fallback_k = min(SERVE_MAX_NMS, na * sum((imgsz // s) ** 2 for s in model.spec.strides))
+    check(seen_k == [fallback_k], f"{label}: fallback NMS ran at K={seen_k}, expected [{fallback_k}]")
+    print(f"{label} requests: n per image mean {np.mean(counts):.1f}, max {max(counts)}; dense batch fell back, "
+          f"K1 at K={seen_k[0]} [{greedy_nms.last_route}], n mean {float(dense_n.float().mean()):.1f}", flush=True)
 
     batch = frames[:max_batch]
     imgs = torch.as_tensor(batch, device=model.device)
@@ -740,18 +788,20 @@ def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32):
         return dets
 
     batch_ms = cuda_ms(one_batch, iters=10)
-    print(f"main path: {batch_ms:.3f} ms per batch of {max_batch} = "
+    print(f"{label}: {batch_ms:.3f} ms per batch of {max_batch} = "
           f"{max_batch / batch_ms * 1e3:.1f} img/s (device-synchronised, inputs on the card)", flush=True)
 
     profile_fast_path(infer, imgs)
 
-    check_fast_path(infer, model, imgs)
-    return launches, dict(img_s=n_requests / serve_s, batch_ms=batch_ms), batch
+    fast_path = check_fast_path(infer, model, imgs, f"{label} fast path")
+    return launches, dict(img_s=n_requests / serve_s, batch_ms=batch_ms, device_calls=batcher.calls,
+                          fallback_k=fallback_k, fast_path=fast_path), batch
 
 
 def check_fast_path(infer, model, imgs, label="fast path"):
     """The served batch through the kernels against the plain score and NMS
-    functions on the same bf16 head outputs: n equal, boxes 0.1 px, conf 1e-3."""
+    functions on the same bf16 head outputs: n equal, boxes 0.1 px, conf 1e-3;
+    and K2 against masked_scores_plain on each level's rows (`check_scores`)."""
     from yolov3_tpu_torch.models.detect_head import decode_topk_nhwc
     from yolov3_tpu_torch.ops.nms import nms_from_candidates
     from yolov3_tpu_torch.ops.nms_cuda import greedy_nms_plain
@@ -760,11 +810,15 @@ def check_fast_path(infer, model, imgs, label="fast path"):
     fallbacks = infer.fallbacks
     dets_k, n_k = infer(imgs)
     check(infer.fallbacks == fallbacks, f"{label}: the compared batch took the full-decode fallback")
+    rows_in = []
     with torch.inference_mode():
         feats = infer.serving_model(imgs.to(torch.bfloat16) / 255.0, raw=True)
-        boxes, scores, cls_ids, ov = decode_topk_nhwc(feats, model.anchors_px, model.spec.strides,
-                                                      with_overflow=True, score_fn=masked_scores_plain)
+        boxes, scores, cls_ids, ov = decode_topk_nhwc(
+            feats, model.anchors_px, model.spec.strides, with_overflow=True,
+            score_fn=functools.partial(_recorded, masked_scores_plain, rows_in))
         dets_p, n_p = nms_from_candidates(boxes, scores, cls_ids, nms_fn=greedy_nms_plain)
+    check(len(rows_in) == model.spec.nl, f"{label}: the decode scored {len(rows_in)} row tensors")
+    score_err = max(check_scores(*args, f"{label} level {i}") for i, args in enumerate(rows_in))
     n_k, n_p = np.asarray(n_k), n_p.cpu().numpy()
     check(not bool(ov.any()), f"{label}: the compared batch overflowed")
     check((n_k == n_p).all(), f"{label}: n {n_k.tolist()} != plain {n_p.tolist()}")
@@ -776,7 +830,7 @@ def check_fast_path(infer, model, imgs, label="fast path"):
     check(box_err <= 0.1 and conf_err <= 1e-3, f"{label} vs plain: box err {box_err}, conf err {conf_err}")
     print(f"{label} vs plain kernels' versions: n equal (sum {int(n_k.sum())}), "
           f"max box err {box_err:.3g} px, max conf err {conf_err:.3g}", flush=True)
-    return dict(n=int(n_k.sum()), box_err=box_err, conf_err=conf_err)
+    return dict(n=int(n_k.sum()), box_err=box_err, conf_err=conf_err, score_err=score_err)
 
 
 # a 390x500 frame letterboxed into 512x640: gain 1.28, 6.4 rows of padding above and below
@@ -866,23 +920,24 @@ def profile_val_batch(model, imgs, nms_kw):
     return out
 
 
-def phase_val(rng, model):
+def phase_val(rng, model, batches=VAL_BATCHES, label="val path"):
     """The val path: validator.run at the val-grade defaults on a self-labelled
-    set (VAL_BATCHES), f32 and half=True; K1 once a batch at K = 30000; the
-    same run through the plain NMS gives the same metrics, and K1's
-    detections equal the plain NMS's on the same predictions."""
+    set (`batches`, VAL_BATCHES' layout), f32 and half=True; K1 once a batch at
+    K = 30000; the same run through the plain NMS gives the same metrics, and
+    K1's detections equal the plain NMS's on the same predictions. `label`
+    starts each line printed."""
     from yolov3_tpu_torch.eval import validator
     from yolov3_tpu_torch.models.detect_head import decode_predictions
     from yolov3_tpu_torch.ops.nms import batched_nms
     from yolov3_tpu_torch.ops.nms_cuda import greedy_nms, greedy_nms_plain
 
     t0 = time.perf_counter()
-    batches = make_val_batches(rng, model)
+    batches = make_val_batches(rng, model, batches)
     n_imgs = sum(b[0].shape[0] for b in batches)
     n_labels = int(sum(b[2].sum() for b in batches))
-    print(f"val set: {len(batches)} batches {[b[0].shape[:3] for b in batches]}, {n_labels} labels (the f32 "
+    print(f"{label} set: {len(batches)} batches {[b[0].shape[:3] for b in batches]}, {n_labels} labels (the f32 "
           f"val path's detections above conf 0.25, plain NMS) in {time.perf_counter() - t0:.2f} s", flush=True)
-    check(n_labels > 0, "the self-labelling pass found no detection above conf 0.25")
+    check(n_labels > 0, f"{label}: the self-labelling pass found no detection above conf 0.25")
     validator.run(model=model, dataloader=batches[:1])  # warm-up: cuDNN picks its algorithms
     torch.cuda.synchronize()
 
@@ -900,23 +955,23 @@ def phase_val(rng, model):
     wall_half = time.perf_counter() - t0
     results_plain, _, _ = validator.run(model=model, dataloader=batches, nms_fn=greedy_nms_plain)
     out = {}
-    for label, res, sp, w in (("f32", results, speeds, wall), ("half", results_half, speeds_half, wall_half)):
+    for kind, res, sp, w in (("f32", results, speeds, wall), ("half", results_half, speeds_half, wall_half)):
         mp, mr, map50, map_ = (float(v) for v in res[:4])
-        out[label] = dict(mp=mp, mr=mr, map50=map50, map=map_, ms_per_batch=w / len(batches) * 1e3,
-                          img_s=n_imgs / w, ms_per_image=dict(zip(("pre", "inference+nms", "post"), sp)))
-        print(f"val path {label}: P {mp:.4f} R {mr:.4f} mAP50 {map50:.4f} mAP50-95 {map_:.4f}; "
+        out[kind] = dict(mp=mp, mr=mr, map50=map50, map=map_, ms_per_batch=w / len(batches) * 1e3,
+                         img_s=n_imgs / w, ms_per_image=dict(zip(("pre", "inference+nms", "post"), sp)))
+        print(f"{label} {kind}: P {mp:.4f} R {mr:.4f} mAP50 {map50:.4f} mAP50-95 {map_:.4f}; "
               f"{w / len(batches) * 1e3:.1f} ms per batch, {n_imgs / w:.1f} img/s (host clock around "
               f"validator.run, {n_imgs} images); ms per image: pre {sp[0]:.3f}, inference+NMS {sp[1]:.3f}, "
               f"post {sp[2]:.3f}", flush=True)
-    print(f"val path: launches {launches} for {len(batches)} batches, K1 route [{route}]; half=True mAP50 "
+    print(f"{label}: launches {launches} for {len(batches)} batches, K1 route [{route}]; half=True mAP50 "
           f"{out['half']['map50'] - out['f32']['map50']:+.4f}, mAP50-95 {out['half']['map'] - out['f32']['map']:+.4f} "
           f"against f32", flush=True)
     check(launches == {"greedy_nms": len(batches), "masked_scores": 0, "conv3x3_bn_stats": 0},
-          f"val path launches {launches}, expected K1 once a batch and nothing else")
-    check(route == "block per image, candidates in global memory", f"K1 took [{route}] on the val path")
-    check(out["f32"]["map50"] >= 0.95, f"f32 mAP50 {out['f32']['map50']} < 0.95 on the self-labelled set")
+          f"{label}: launches {launches}, expected K1 once a batch and nothing else")
+    check(route == "block per image, candidates in global memory", f"{label}: K1 took [{route}]")
+    check(out["f32"]["map50"] >= 0.95, f"{label}: f32 mAP50 {out['f32']['map50']} < 0.95 on the self-labelled set")
     check(np.array_equal(np.array(results[:4]), np.array(results_plain[:4])),
-          f"metrics through K1 {results[:4]} differ from those through the plain NMS {results_plain[:4]}")
+          f"{label}: metrics through K1 {results[:4]} differ from those through the plain NMS {results_plain[:4]}")
 
     n_dets = 0
     kw = dict(conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30000)  # the val-grade defaults
@@ -927,9 +982,9 @@ def phase_val(rng, model):
             dets_k, n_k = batched_nms(pred, multi_label=True, **kw)
             dets_p, n_p = batched_nms(pred, multi_label=True, nms_fn=greedy_nms_plain, **kw)
         check(torch.equal(n_k, n_p) and torch.equal(dets_k, dets_p),
-              f"val detections through K1 differ from the plain NMS's at {tuple(imgs.shape)}")
+              f"{label}: detections through K1 differ from the plain NMS's at {tuple(imgs.shape)}")
         n_dets += int(n_k.sum())
-    print(f"val path: K1 detections equal to the plain NMS's on the same predictions ({n_dets} detections), "
+    print(f"{label}: K1 detections equal to the plain NMS's on the same predictions ({n_dets} detections), "
           f"metrics through the plain NMS equal", flush=True)
     out.update(launches=launches, route=route, n_labels=n_labels, n_images=n_imgs,
                profile=profile_val_batch(model, batches[0][0], kw))
@@ -1488,8 +1543,9 @@ def phase_save_hybrid(model, batches, map50_f32):
 K3_KERNELS = ("conv3x3_stats", "bn_stats_finalize")  # the conv kernel and its fixed-order stats reduction
 # (label, dtype, B, H, W, Cin, Cout). First yolov3@640's stride-1 3x3 convs at batch 8, one per map
 # size and the stem (yolov3-spp's are the same six), then yolov5s@640's (its C3 bottlenecks, Cin =
-# Cout; yolov5s-transformer's are among them): these are timed. Then, for correctness only, the
-# shapes yolov3-tiny adds, at batch 2; odd shapes that reach every path of the kernels (each swizzle
+# Cout; yolov5s-transformer's are among them), then yolov3-tiny@640's: these are timed, at the
+# batch of 8 the train phases run. Then, for correctness only, yolov3-tiny at phase_learn's 320 px;
+# odd shapes that reach every path of the kernels (each swizzle
 # width of the wgmma kernel, a ragged last pixel tile, a Cout that is no multiple of the channel
 # tile or of 8, a ragged stem row, the element-load kernel); and small f32 shapes.
 K3_SHAPES = (
@@ -1503,14 +1559,14 @@ K3_SHAPES = (
     ("80x80 64->64", torch.bfloat16, 8, 80, 80, 64, 64),
     ("40x40 128->128", torch.bfloat16, 8, 40, 40, 128, 128),
     ("20x20 256->256", torch.bfloat16, 8, 20, 20, 256, 256),
-    ("tiny stem 640x640 3->16", torch.bfloat16, 2, 640, 640, 3, 16),
-    ("tiny 320x320 16->32", torch.bfloat16, 2, 320, 320, 16, 32),
-    ("tiny 160x160 32->64", torch.bfloat16, 2, 160, 160, 32, 64),
-    ("tiny 80x80 64->128", torch.bfloat16, 2, 80, 80, 64, 128),
-    ("tiny 40x40 128->256", torch.bfloat16, 2, 40, 40, 128, 256),
-    ("tiny 40x40 384->256", torch.bfloat16, 2, 40, 40, 384, 256),
-    ("tiny 20x20 256->512", torch.bfloat16, 2, 20, 20, 256, 512),
-    ("tiny 20x20 512->1024", torch.bfloat16, 2, 20, 20, 512, 1024),
+    ("tiny stem 640x640 3->16", torch.bfloat16, 8, 640, 640, 3, 16),
+    ("tiny 320x320 16->32", torch.bfloat16, 8, 320, 320, 16, 32),
+    ("tiny 160x160 32->64", torch.bfloat16, 8, 160, 160, 32, 64),
+    ("tiny 80x80 64->128", torch.bfloat16, 8, 80, 80, 64, 128),
+    ("tiny 40x40 128->256", torch.bfloat16, 8, 40, 40, 128, 256),
+    ("tiny 40x40 384->256", torch.bfloat16, 8, 40, 40, 384, 256),
+    ("tiny 20x20 256->512", torch.bfloat16, 8, 20, 20, 256, 512),
+    ("tiny 20x20 512->1024", torch.bfloat16, 8, 20, 20, 512, 1024),
     # phase_learn's: yolov3-tiny at 320 px, batch 32 (LEARN_IMGSZ, LEARN_BS)
     ("learn stem 320x320 3->16", torch.bfloat16, 32, 320, 320, 3, 16),
     ("learn 160x160 16->32", torch.bfloat16, 32, 160, 160, 16, 32),
@@ -1531,7 +1587,7 @@ K3_SHAPES = (
     ("f32 8x24 4->8", torch.float32, 8, 8, 24, 4, 8),
     ("f32 odd 13x19 5->7", torch.float32, 8, 13, 19, 5, 7),
 )
-# yolov3's and yolov5s's rows, the ones that are timed
+# yolov3's, yolov5s's and yolov3-tiny's rows, the ones that are timed
 K3_TIMED = tuple(row for row in K3_SHAPES if row[1] == torch.bfloat16 and row[2] == 8 and not row[0].startswith("odd"))
 K3_MAIN_SHAPE = "80x80 128->256"  # the row of the {"kernels": ...} line
 # y: one bf16 ulp of the plain version's rounding / f32 sums in another order
@@ -2221,9 +2277,10 @@ class EpochProfile:
             self.range = None
 
 
-def k3_layers(spec):
-    """The spec's stride-1 3x3 Conv layers (each with its BatchNorm): K3 launches a train step."""
-    return sum(ls.op == "Conv" and ls.args[1] == 3 and (len(ls.args) < 3 or ls.args[2] == 1) for ls in spec.layers)
+def stats_route_convs(model):
+    """The model's Convs that take the conv+statistics route in train mode (its stride-1 3x3 convs with a
+    BatchNorm, nested ones included): K3 launches a train step."""
+    return sum(bool(getattr(m, "stats_route", False)) for m in model.modules())
 
 
 def phase_learn(gpu, epochs=LEARN_EPOCHS, n_images=LEARN_IMAGES, imgsz=LEARN_IMGSZ, bs=LEARN_BS, cfg=LEARN_CFG,
@@ -2290,7 +2347,7 @@ def phase_learn(gpu, epochs=LEARN_EPOCHS, n_images=LEARN_IMAGES, imgsz=LEARN_IMG
         train_s = time.perf_counter() - t0
         launches = {"conv3x3_bn_stats": conv3x3_bn_stats.launches, "greedy_nms": greedy_nms.launches}
         # --- end of the training run
-        convs = k3_layers(DetectionModel.from_config(cfg, device="cpu").spec)
+        convs = stats_route_convs(DetectionModel.from_config(cfg, device="cpu"))
         check(launches["conv3x3_bn_stats"] == convs * steps * epochs,
               f"K3 launched {launches['conv3x3_bn_stats']} times in {steps * epochs} steps of {convs} layers")
         busy, n_kernels = busy_share(prof.prof, EpochProfile.RANGE)
@@ -2557,6 +2614,58 @@ def detect_val_ensemble(model, probe, weights, tmp, gpu, batch_size=DETECT_VAL_B
                 launches=val_launches, speeds_ms=[float(v) for v in speeds])
 
 
+def detect_checked(label, n_images, gpu, require_detections=True, **run_kwargs):
+    """cli.detect.run(**run_kwargs) with the launches counted and each image's
+    batched_nms call kept with its inputs: K1 once an image, at least one
+    image through K1's shared-memory route, every image's detections equal to
+    the plain NMS on the same decoded predictions (`check_dets`), and, with
+    `require_detections`, at least one detection. Returns the run's record."""
+    from pathlib import Path
+
+    import yolov3_tpu_torch.cli.detect as detect_cli
+    from yolov3_tpu_torch.ops import nms as nms_ops
+    from yolov3_tpu_torch.ops.nms_cuda import greedy_nms, greedy_nms_plain
+
+    real_batched_nms = nms_ops.batched_nms
+    seen = []
+
+    def observed(pred, **kw):  # the CLI's call, kept with its inputs for the plain NMS after the run
+        out = real_batched_nms(pred, **kw)
+        seen.append((greedy_nms.last_route, pred, kw, out))
+        return out
+
+    detect_cli.batched_nms = observed
+    try:
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        save_dir = detect_cli.run(**run_kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+    finally:
+        detect_cli.batched_nms = real_batched_nms
+    check(launches["greedy_nms"] == n_images, f"detect {label}: {launches['greedy_nms']} K1 launches for "
+          f"{n_images} images")
+    routes = sorted({r for r, _, _, _ in seen})
+    check(any("shared memory" in r for r in routes), f"detect {label}: K1 routes {routes}")
+    n_dets = []
+    for i, (route, pred, kw, (dets, n)) in enumerate(seen):  # the plain NMS on the same predictions
+        with torch.inference_mode():
+            pdets, pn = real_batched_nms(pred, **{**kw, "nms_fn": greedy_nms_plain})
+        check(torch.equal(n, pn), f"detect {label} image {i}: n {n.tolist()} vs plain {pn.tolist()}")
+        m = int(n[0])
+        check_dets(dets[0, :m].cpu().numpy(), pdets[0, :m].cpu().numpy(), f"detect {label} image {i}")
+        n_dets.append(m)
+    check(sum(n_dets) > 0 or not require_detections, f"detect {label}: no detections")
+    record = dict(save_dir=Path(save_dir), launches=launches, routes=routes, n=n_dets,
+                  speed_ms=dict(detect_cli.run.speed_ms), wall_s=wall, candidates=seen[0][1].shape[1])
+    print(f"detect {label}: {n_images} images at {run_kwargs.get('imgsz', 'the default size')}, {sum(n_dets)} "
+          f"detections ({min(n_dets)}-{max(n_dets)} an image), K1 launches {launches['greedy_nms']} {routes}, equal "
+          f"to the plain NMS; per image: " + ", ".join(f"{k} {v:.2f} ms" for k, v in record["speed_ms"].items())
+          + f"; the run {wall:.2f} s (JPEG, label and crop writes included) on {gpu}", flush=True)
+    return record
+
+
 def phase_detect(gpu):
     """The detect user path at yolov3@640 (seeded weights, detections planted on
     the head bias, calibrated on the detect images themselves) through K1:
@@ -2634,51 +2743,13 @@ def phase_detect(gpu):
           f"copy {split['bgr2rgb']:.3f}); sample1 {load_ms['sample1']:.3f} ms, sample2 {load_ms['sample2']:.3f} ms "
           f"on the host of {gpu}", flush=True)
 
-    real_batched_nms = nms_ops.batched_nms
-    seen = []
-
-    def observed(pred, **kw):  # the CLI's call, kept with its inputs for the plain NMS after the run
-        out = real_batched_nms(pred, **kw)
-        seen.append((greedy_nms.last_route, pred, kw, out))
-        return out
-
-    detect_cli.batched_nms = observed
     runs = {}
-    try:
-        for name, weights, extra in (("ckpt", ckpt, dict(save_txt=True, save_conf=True, save_crop=True)),
-                                     ("pt", pt, dict(save_txt=True, save_conf=True, nosave=True)),
-                                     ("tta", ckpt, dict(augment=True, nosave=True))):
-            seen.clear()
-            reset_kernel_counts()
-            t0 = time.perf_counter()
-            save_dir = detect_cli.run(weights=str(weights), source=str(src), imgsz=(DETECT_IMGSZ, DETECT_IMGSZ),
-                                      project=str(tmp / "runs"), name=name, exist_ok=True, **extra)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = kernel_counts()
-            check(launches["greedy_nms"] == len(files), f"detect {name}: {launches['greedy_nms']} K1 launches for "
-                  f"{len(files)} images")
-            routes = sorted({r for r, _, _, _ in seen})
-            check(any("shared memory" in r for r in routes), f"detect {name}: K1 routes {routes}")
-            n_dets = []
-            for i, (route, pred, kw, (dets, n)) in enumerate(seen):  # the plain NMS on the same predictions
-                with torch.inference_mode():
-                    pdets, pn = real_batched_nms(pred, **{**kw, "nms_fn": greedy_nms_plain})
-                check(torch.equal(n, pn), f"detect {name} image {i}: n {n.tolist()} vs plain {pn.tolist()}")
-                m = int(n[0])
-                check_dets(dets[0, :m].cpu().numpy(), pdets[0, :m].cpu().numpy(), f"detect {name} image {i}")
-                n_dets.append(m)
-            check(sum(n_dets) > 0, f"detect {name}: no detections")
-            runs[name] = dict(save_dir=Path(save_dir), launches=launches, routes=routes, n=n_dets,
-                              speed_ms=dict(detect_cli.run.speed_ms), wall_s=wall, candidates=seen[0][1].shape[1])
-            print(f"detect {name}: {len(files)} images at {DETECT_IMGSZ}, {sum(n_dets)} detections "
-                  f"({min(n_dets)}-{max(n_dets)} an image), K1 launches {launches['greedy_nms']} {routes}, equal to "
-                  f"the plain NMS; per image: "
-                  + ", ".join(f"{k} {v:.2f} ms" for k, v in runs[name]["speed_ms"].items())
-                  + f"; the run {wall:.2f} s (JPEG, label and crop writes included) on {gpu}", flush=True)
-            seen.clear()
-    finally:
-        detect_cli.batched_nms = real_batched_nms
+    for name, weights, extra in (("ckpt", ckpt, dict(save_txt=True, save_conf=True, save_crop=True)),
+                                 ("pt", pt, dict(save_txt=True, save_conf=True, nosave=True)),
+                                 ("tta", ckpt, dict(augment=True, nosave=True))):
+        runs[name] = detect_checked(name, len(files), gpu, weights=str(weights), source=str(src),
+                                    imgsz=(DETECT_IMGSZ, DETECT_IMGSZ), project=str(tmp / "runs"), name=name,
+                                    exist_ok=True, **extra)
 
     # outputs: annotated JPEGs of the sources' shapes (decoded in-tree), parseable txt rows, crops; .pt equal to the
     # checkpoint
@@ -2748,7 +2819,7 @@ def phase_detect(gpu):
     x = torch.as_tensor(probe[:1]).cuda().float() / 255.0
     with torch.inference_mode():
         pred = auto.model.predict(x)
-        real_batched_nms(pred, conf_thres=0.25, iou_thres=0.45, max_det=1000, max_nms=8192, nms_fn=capture)
+        nms_ops.batched_nms(pred, conf_thres=0.25, iou_thres=0.45, max_det=1000, max_nms=8192, nms_fn=capture)
     args = captured[0]
     B, K = args[2].shape
     out_k, n_k = greedy_nms(*args)
@@ -2824,7 +2895,7 @@ def phase_zoo(rng):
         bs, n_batches = ZOO_SERVE.get(name, (8, 1))
         frames = rng.integers(0, 256, size=(bs, 640, 640, 3), dtype=np.uint8)
         settle_bn(model, frames[:8])
-        targets, counts = plant_under_topk(model, frames)
+        targets, counts, _, _ = plant_under_topk(model, frames)
         print(f"{name}: detections planted at targets {[round(t, 2) for t in targets]} cells an image by scale; "
               "above conf 0.25 (f32 eval) by scale, median / max over the frames: "
               + ", ".join(f"{int(np.median(c))} / {int(c.max())}" for c in counts), flush=True)
@@ -2862,6 +2933,115 @@ def phase_zoo(rng):
         launches[name] = dict(served, conv3x3_bn_stats=k3)
         results[name] = row
     return launches, results
+
+
+# yolov3-spp and yolov3-tiny as the package's configs publish them (nc 80): parameters, and K3 launches a
+# train step (their stride-1 3x3 Convs, Bottlenecks' included: 33, and 9 on tiny's 640 / 320 / 160 / 80 px
+# maps, 2 at 40 and 3 at 20)
+FAMILY = {"yolov3-spp": (62998749, 33), "yolov3-tiny": (8852366, 9)}
+FAMILY_REQUESTS = 32  # concurrent 640x640 requests through MicroBatcher(max_batch=32)
+FAMILY_TRAIN_STEPS = 3  # 1 + 3 train steps at batch 8
+FAMILY_ROUNDS = 3  # timing windows of each model's batch of 32, taken in turns
+FAMILY_HUB = "yolov3_spp"  # the hub entry point the defaults' check loads
+
+
+def phase_family(gpu):
+    """yolov3-spp and yolov3-tiny at their published widths (nc 80, seeded
+    random weights, 640 px), then the package's defaults as a user types them.
+
+    Each model: its parameter count and its K3 launches a step (FAMILY); the
+    serving path as yolov3's (`phase_main_path`: detections planted at
+    SERVE_TARGETS by head stride, under half each level's top-k on every
+    frame, FAMILY_REQUESTS concurrent requests through
+    MicroBatcher(max_batch=32), a dense batch through the fallback; K2 once a
+    head level and K1 once a device call, K1 once more on the fallback; the
+    fast path against the plain score and NMS versions, and K2 against
+    masked_scores_plain on each level's rows); K2's device time on each
+    level's rows of the served batch beside its byte bound; the val path
+    (`phase_val` on 32 self-labelled 640x640 frames: f32 mAP50 >= 0.95, K1 once
+    a batch); the train path (`phase_train`: 1 + 3 steps at batch 8, K3 against
+    its plain version from the run's states); and ms per batch of 32 of both
+    models, FAMILY_ROUNDS rounds timed in turns, medians.
+
+    Then cli.detect.run() with its defaults (yolov3-tiny, the sample images;
+    written to a temporary project): K1 once an image, each image's rows equal
+    to the plain NMS (`detect_checked`; a seeded random tiny may detect
+    nothing at conf 0.25, so that is reported, not required); and
+    hub.load(FAMILY_HUB) on those paths: one K1 launch."""
+    import tempfile
+    from pathlib import Path
+
+    from yolov3_tpu_torch import hub
+    from yolov3_tpu_torch.cli.detect import DEFAULT_SOURCE
+    from yolov3_tpu_torch.data.datasets import IMG_FORMATS
+    from yolov3_tpu_torch.models.detect_head import decode_topk_nhwc
+    from yolov3_tpu_torch.models.detection import DetectionModel
+    from yolov3_tpu_torch.ops.score_cuda import masked_scores
+    from yolov3_tpu_torch.serve import build_batched_infer
+
+    rng = np.random.default_rng(21)  # a generator of its own: the earlier phases' frames stay theirs
+    out, launches, timed = {}, {}, {}
+    for name, (params, convs) in FAMILY.items():
+        model = DetectionModel.from_config(name, seed=0)  # full width, nc 80, on the card
+        n_params, n_convs = model.num_params(), stats_route_convs(model)
+        print(f"{name}: {n_params} parameters, {n_convs} stride-1 3x3 convs with a BatchNorm, head strides "
+              f"{list(model.spec.strides)}", flush=True)
+        check(n_params == params, f"{name} has {n_params} parameters, expected {params}")
+        check(n_convs == convs, f"{name}: {n_convs} Convs take the conv+statistics route, expected {convs}")
+        serve_launches, serve, batch = phase_main_path(rng, model, n_requests=FAMILY_REQUESTS,
+                                                       label=f"{name} serving", fit_frames=True)
+        infer = build_batched_infer(model)
+        imgs = torch.as_tensor(batch, device=model.device)
+        rows = []
+        with torch.inference_mode():  # K2 on each level's rows of the served batch, as the decode hands them over
+            feats = infer.serving_model(imgs.to(torch.bfloat16) / 255.0, raw=True)
+            decode_topk_nhwc(feats, model.anchors_px, model.spec.strides,
+                             score_fn=functools.partial(_recorded, masked_scores, rows))
+        levels = []
+        for (f, na, no, conf), stride in zip(rows, model.spec.strides):
+            nbytes = f.numel() * f.element_size() + f.shape[0] * f.shape[1] * na * 8
+            levels.append(dict(stride=stride, rows=list(f.shape), ms=device_ms(lambda: masked_scores(f, na, no, conf),
+                                                                               SCORE_KERNEL),
+                               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes"))
+        print(f"{name} K2 masked_scores per level, batch {imgs.shape[0]}: " + "; ".join(
+            f"stride {r['stride']} {tuple(r['rows'])} {r['ms']:.4f} ms device, bound {r['bound_ms']:.4f} ms"
+            for r in levels) + f" on {gpu}", flush=True)
+        timed[name] = (infer, imgs)
+        val, _ = phase_val(rng, model, batches=VAL_BATCHES[:1], label=f"{name} val")
+        del model, feats, rows
+        k3, train = phase_train(rng, DetectionModel.from_config(name, seed=0), steps=FAMILY_TRAIN_STEPS,
+                                convs_per_step=convs, label=f"{name} train")
+        launches[name] = dict(serve=serve_launches, device_calls=serve["device_calls"],
+                              val=val["launches"]["greedy_nms"], k3=k3, k3_per_step=k3 // (FAMILY_TRAIN_STEPS + 1))
+        out[name] = dict(params=n_params, serve=serve, k2_levels=levels, val=val, train=train)
+
+    ms = {name: [] for name in timed}  # in turns: on a shared host one window alone has moved by 10%
+    for _ in range(FAMILY_ROUNDS):
+        for name, (infer, imgs) in timed.items():
+            ms[name].append(cuda_ms(lambda: infer(imgs)[0], iters=10))
+    for name, rounds in ms.items():
+        out[name].update(batch_ms=float(np.median(rounds)), batch_ms_rounds=rounds)
+        print(f"{name} serving: {out[name]['batch_ms']:.3f} ms per batch of 32 = "
+              f"{32 / out[name]['batch_ms'] * 1e3:.1f} img/s (median of {FAMILY_ROUNDS} rounds in turns: "
+              f"{' '.join(f'{v:.3f}' for v in rounds)}; device-synchronised, inputs on the card) on {gpu}", flush=True)
+    del timed
+
+    files = sorted(p for p in Path(DEFAULT_SOURCE).iterdir() if p.suffix.lower()[1:] in IMG_FORMATS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_family_") as tmp:
+        default = detect_checked("defaults (yolov3-tiny)", len(files), gpu, require_detections=False,
+                                 project=tmp, exist_ok=True)
+    reset_kernel_counts()
+    det = hub.load(FAMILY_HUB)([str(p) for p in files])
+    torch.cuda.synchronize()
+    hub_launches = kernel_counts()["greedy_nms"]
+    check(hub_launches == 1 and det.n == len(files), f"hub.load({FAMILY_HUB!r}): {hub_launches} K1 launches, "
+                                                     f"{det.n} images")
+    print(f"hub.load({FAMILY_HUB!r}) on the {len(files)} default images: one batch, "
+          f"{sum(len(p) for p in det.pred)} detections, K1 launches {hub_launches} on {gpu}", flush=True)
+    out["defaults"] = dict(detect={k: v for k, v in default.items() if k != "save_dir"}, hub_launches=hub_launches,
+                           hub_detections=sum(len(p) for p in det.pred))
+    launches["defaults"] = dict(detect=default["launches"]["greedy_nms"], hub=hub_launches)
+    return launches, out
 
 
 PARALLEL_BS = 8  # the seeded train batch: 4 images a rank at world 2
@@ -3471,8 +3651,8 @@ def layout_tensorflow(model, frames):
 
 
 def phase_kernel_times(rng, tag):
-    """K3 at the timed shapes, yolov3's six and yolov5s's four (batch 8, bf16, the weight as nn.modules.Conv
-    hands it over), K1 at NMS_SHAPES and K2 at yolov3@640's three scales
+    """K3 at the timed shapes, yolov3's six, yolov5s's four and yolov3-tiny's eight (batch 8, bf16, the
+    weight as nn.modules.Conv hands it over), K1 at NMS_SHAPES and K2 at yolov3@640's three scales
     (batch 32, bf16; each scale and the three together): device ms by kernel
     name and ms by CUDA events, each on its own line after `tag`. The first K3
     shape has next to no device work: its time by events is the host's cost of
@@ -3606,6 +3786,7 @@ def main(argv=()):
     trainer_launches, trainer = phase_trainer()
     learn_launches, learn = phase_learn(gpu)
     zoo_launches, zoo = phase_zoo(rng)
+    family_launches, family = phase_family(gpu)
 
     serving = nms_rows["serving"]
     kernels = [
@@ -3630,7 +3811,12 @@ def main(argv=()):
              learn_val_launches=learn_launches["greedy_nms"], host_nms_launches=host_nms["launches"]["greedy_nms"],
              learn_val_launches_per_batch=learn_launches["greedy_nms"] / learn_launches["greedy_nms_val_batches"],
              layout_padded_head_launches=layout["padded_head"]["launches"]["greedy_nms"],
-             layout_head_5d_launches=layout["head_5d"]["launches"]["greedy_nms"]),
+             layout_head_5d_launches=layout["head_5d"]["launches"]["greedy_nms"],
+             tiny_serving_shape=nms_rows["tiny serving"],
+             family_serve_launches={k: family_launches[k]["serve"]["greedy_nms"] for k in FAMILY},
+             family_val_launches={k: family_launches[k]["val"] for k in FAMILY},
+             family_detect_default_launches=family_launches["defaults"]["detect"],
+             family_hub_launches=family_launches["defaults"]["hub"]),
         dict(name="masked_scores", route="cuda", source="yolov3_tpu_torch/csrc/score.cu",
              replaces="yolov3_tpu/ops/score_pallas.py:43", launches=launches["masked_scores"],
              max_abs_err=score["max_abs_err"], ms=score["ms"], plain_ms=score["plain_ms"],
@@ -3641,7 +3827,8 @@ def main(argv=()):
              zoo_launches={k: v["masked_scores"] for k, v in zoo_launches.items()},
              parallel_serve_launches=parallel_launches["masked_scores_serve"],
              layout_padded_head_launches=layout["padded_head"]["launches"]["masked_scores"],
-             layout_head_5d_launches=layout["head_5d"]["launches"]["masked_scores"]),
+             layout_head_5d_launches=layout["head_5d"]["launches"]["masked_scores"],
+             family_serve_launches={k: family_launches[k]["serve"]["masked_scores"] for k in FAMILY}),
         dict(name="conv3x3_bn_stats", route="cuda", source="yolov3_tpu_torch/csrc/conv_bn.cu",
              replaces="yolov3_tpu/ops/conv_bn_pallas.py:33", launches=launches["conv3x3_bn_stats"],
              **{k: conv_rows[K3_MAIN_SHAPE][k]
@@ -3653,14 +3840,15 @@ def main(argv=()):
              parallel_launches_per_rank_step=parallel_launches["conv3x3_bn_stats_per_rank_step"],
              parallel_trainer_launches_per_rank=parallel_launches["conv3x3_bn_stats_trainer"],
              learn_launches=learn_launches["conv3x3_bn_stats"], learn_launches_per_step=learn["k3_per_step"],
-             layout_s2d_launches_per_step=layout["s2d_train"]["k3_per_step"]),
+             layout_s2d_launches_per_step=layout["s2d_train"]["k3_per_step"],
+             family_launches_per_step={k: family_launches[k]["k3_per_step"] for k in FAMILY}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"nms_shapes": nms_rows, "conv_bn_shapes": conv_rows, "main_path": e2e, "http": http,
                       "fast_false": fast_false, "val": val, "merge": merge, "save_hybrid": hybrid, "train": train,
                       "remat": remat, "trainer": trainer, "jpeg": jpeg, "detect": detect, "zoo": zoo,
                       "export": exported, "parallel": parallel, "learn": learn, "host_nms": host_nms,
-                      "layout": layout, "env": env}))
+                      "layout": layout, "family": family, "env": env}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -6,12 +6,14 @@ import them inside the function that draws), and its entry points refuse to
 drop to the CPU on their own."""
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
 import torch
+import yaml
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "yolov3_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -233,3 +235,54 @@ def test_wrappers_reject_other_devices():
         greedy_nms(torch.zeros(1, 4, 4, device="meta"), torch.zeros(1, 4, 4, device="meta"), z, z)
     with pytest.raises(ValueError, match="unsupported device"):
         conv3x3_bn_stats(torch.zeros(1, 4, 4, 3, device="meta"), torch.zeros(3, 3, 3, 8, device="meta"))
+
+
+# --- the port's YAMLs and scripts run and name the port's own files ------------
+
+PORT_YAMLS = sorted((ROOT / "yolov3_tpu_torch").rglob("*.yaml"))
+PORT_SCRIPTS = sorted((ROOT / "yolov3_tpu_torch").rglob("*.sh"))
+JAX_PATH = re.compile(r"\byolov3_tpu(?!_torch)[/.]")  # a file path or module of the JAX package
+
+
+def yaml_strings(node):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from yaml_strings(k)
+            yield from yaml_strings(v)
+    elif isinstance(node, list):
+        for v in node:
+            yield from yaml_strings(v)
+    elif isinstance(node, str):
+        yield node
+
+
+def test_the_port_has_its_download_scripts():
+    names = {p.name for p in PORT_SCRIPTS}
+    assert {"get_coco.sh", "get_coco128.sh", "get_voc.sh", "download_weights.sh"} <= names
+    assert all(p.parent == ROOT / "yolov3_tpu_torch/data/scripts" for p in PORT_SCRIPTS)
+    recipes = [yaml.safe_load(p.read_text()).get("download") for p in PORT_YAMLS if p.parent.name == "data"]
+    assert sum(str(r).startswith("bash ") for r in recipes) == 2  # coco.yaml and VOC.yaml
+
+
+@pytest.mark.parametrize("path", PORT_YAMLS, ids=lambda p: str(p.relative_to(ROOT)))
+def test_yaml_runs_and_names_only_port_files(path):
+    """A `download: bash ...` recipe runs a script under yolov3_tpu_torch/
+    (data/dataset_yaml.py runs it from the repository's root), and no value
+    names a file or module of the JAX package."""
+    d = yaml.safe_load(path.read_text()) or {}
+    recipe = d.get("download") if isinstance(d, dict) else None
+    if isinstance(recipe, str) and recipe.startswith("bash "):
+        script = recipe.split()[1]
+        assert script.startswith("yolov3_tpu_torch/") and (ROOT / script).is_file(), recipe
+    bad = [v for v in yaml_strings(d) if JAX_PATH.search(v)]
+    assert not bad, f"{path.relative_to(ROOT)} names the JAX package: {bad}"
+    if path.parent.name == "data":  # the dataset YAMLs' comments too: their usage lines point at the port
+        assert not JAX_PATH.search(path.read_text()), f"{path.relative_to(ROOT)} names the JAX package"
+
+
+@pytest.mark.parametrize("path", PORT_SCRIPTS, ids=lambda p: str(p.relative_to(ROOT)))
+def test_script_names_only_port_files(path):
+    text = path.read_text()
+    assert not JAX_PATH.search(text), f"{path.relative_to(ROOT)}: {JAX_PATH.findall(text)}"
+    usage = [ln.split()[3] for ln in text.splitlines() if ln.startswith("# Usage: bash ")]
+    assert usage == [str(path.relative_to(ROOT))]  # its usage line names the port's copy

@@ -17,7 +17,8 @@ from yolov3_tpu_torch.models.spec import parse_spec
 IMGSZ = 640
 MODELS = {"yolov3": "yolov3", "yolov3-spp": "yolov3-spp", "yolov3-tiny": "yolov3-tiny",
           "yolov5s": chip_smoke.YOLOV5S, "yolov5s-transformer": chip_smoke.YOLOV5S_TRANSFORMER}
-TIMED = ("yolov3", "yolov5s", "yolov5s-transformer")  # batch 8, as the train phases run them
+# batch 8, as the train phases run them
+TIMED = ("yolov3", "yolov3-spp", "yolov3-tiny", "yolov5s", "yolov5s-transformer")
 
 
 def stats_route_shapes(name, imgsz=IMGSZ):
@@ -93,8 +94,24 @@ def test_timed_rows_and_main_shape():
 
 def test_learn_phase_shapes_are_chip_smoke_rows():
     """phase_learn trains yolov3-tiny at LEARN_IMGSZ, batch LEARN_BS: each of its K3 shapes is a row at that
-    batch, and its launches a step are the spec's stride-1 3x3 Conv layers, as the phase asserts."""
+    batch, and its launches a step are the model's conv+statistics Convs, as the phase asserts."""
     shapes = stats_route_shapes("yolov3-tiny", chip_smoke.LEARN_IMGSZ)
-    assert len(shapes) == chip_smoke.k3_layers(parse_spec("yolov3-tiny")) == 9
+    with torch.device("meta"):
+        model = DetectionModel(parse_spec("yolov3-tiny"))
+    assert len(shapes) == chip_smoke.stats_route_convs(model) == 9
     missing = set(shapes) - smoke_rows(batch=chip_smoke.LEARN_BS)
     assert not missing, f"phase_learn's shapes without a row in chip_smoke.K3_SHAPES: {sorted(missing)}"
+
+
+@pytest.mark.parametrize("name,split", [("yolov3-spp", [1, 1, 2, 11, 11, 7]), ("yolov3-tiny", [1, 1, 1, 1, 2, 3])])
+def test_family_launch_split(name, split):
+    """phase_family's K3 launches a step (chip_smoke.FAMILY) are the spec's stride-1 3x3 convs: yolov3-spp's
+    are yolov3's 33, yolov3-tiny's 9 on the 640 / 320 / 160 / 80 / 40 / 20 px maps."""
+    shapes = stats_route_shapes(name)
+    assert len(shapes) == chip_smoke.FAMILY[name][1] == sum(split)
+    by_map = Counter(H for H, _, _, _ in shapes)
+    assert [by_map[h] for h in (640, 320, 160, 80, 40, 20)] == split
+    with torch.device("meta"):
+        model = DetectionModel(parse_spec(name))
+    assert chip_smoke.stats_route_convs(model) == sum(split)
+    assert model.num_params() == chip_smoke.FAMILY[name][0]

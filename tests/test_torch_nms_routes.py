@@ -37,9 +37,12 @@ def test_wrapper_equals_jax_loop_with_ties(B, K, iou, max_det):
 
 
 def test_serving_shapes_have_their_own_rows():
-    """chip_smoke's three NMS shapes fall into the three kernels' ranges."""
-    ks = sorted(K for _, _, K, _ in chip_smoke.NMS_SHAPES)
-    assert ks[0] <= 512 < ks[1] <= 8192 < ks[2]
+    """chip_smoke's NMS shapes reach each of the three kernels' ranges: the
+    serving top-k of yolov3 and of yolov3-tiny in registers, the fallback in
+    shared memory, the val grade in global memory."""
+    ks = {label: K for label, _, K, _ in chip_smoke.NMS_SHAPES}
+    assert ks["serving"] == 256 + 128 + 64 and ks["tiny serving"] == 256 + 128
+    assert max(ks["serving"], ks["tiny serving"]) <= 512 < ks["fallback"] <= 8192 < ks["val"]
     assert sorted(ROUTES) == [1, 2, 3]
 
 

@@ -1,13 +1,17 @@
-"""The slice as a whole: the port's serving path against the JAX package.
+"""The slice as a whole: the port's serving path against the JAX package,
+for each published configuration (yolov3, yolov3-spp, yolov3-tiny; narrowed
+as tests/test_torch_model.py narrows them).
 
-1. fused f32 narrow yolov3 with detections planted on the head bias:
+1. fused f32 models with detections planted on the head bias:
    `decode_topk_nhwc` + `nms_from_candidates` of both packages on the same
    weights and uint8 frames; n equal, boxes atol 0.1, conf atol 1e-3
    (test_parity_reference.py:152-153);
 2. the overflow flag on a dense 80x80 scene (cf. test_fused_decode.py
    test_overflow_flag_dense_scene_80x80);
 3. `build_batched_infer` + `MicroBatcher` on the CPU: shapes, valid-first
-   rows, and the full-decode fallback on overflow.
+   rows, the fast path with its serving cast off against the JAX decode and
+   NMS at the same bars, and the full-decode fallback on overflow, whose
+   full path is held to the JAX package's (`build_batched_infer(...).full_jit`).
 """
 
 import threading
@@ -24,6 +28,7 @@ from yolov3_tpu.models.detect_head import decode_topk_nhwc as jax_decode_topk_nh
 from yolov3_tpu.models.detection import DetectionModel as JaxModel
 from yolov3_tpu.models.spec import parse_spec as jax_parse_spec
 from yolov3_tpu.ops.nms import nms_from_candidates as jax_nms_from_candidates
+from yolov3_tpu.serve import build_batched_infer as jax_build_batched_infer
 from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.models.convert import load_jax_variables
 from yolov3_tpu_torch.models.detect_head import decode_topk_nhwc
@@ -35,12 +40,19 @@ from yolov3_tpu_torch.serve import MicroBatcher, build_batched_infer
 ROOT = Path(__file__).resolve().parents[1]
 IMGSZ = 128
 CONF = 0.25
+FAMILY = ("yolov3", "yolov3-spp", "yolov3-tiny")
+
+
+def narrow_cfg(name):
+    """The published config narrowed as tests/test_torch_model.py does: yolov3
+    and yolov3-spp at width 0.125 and depth 0.33, yolov3-tiny at nc 3."""
+    d = yaml.safe_load((ROOT / "yolov3_tpu/models/configs" / f"{name}.yaml").read_text())
+    d.update(name=name, **(dict(nc=3) if name == "yolov3-tiny" else dict(width_multiple=0.125, depth_multiple=0.33)))
+    return d
 
 
 def narrow_yolov3():
-    d = yaml.safe_load((ROOT / "yolov3_tpu/models/configs/yolov3.yaml").read_text())
-    d.update(name="yolov3", width_multiple=0.125, depth_multiple=0.33)
-    return d
+    return narrow_cfg("yolov3")
 
 
 def to_numpy_tree(tree):
@@ -61,26 +73,46 @@ def plant(variables, head, gains, deltas, no=85, cls_bump=12.0):
     return v
 
 
-@pytest.fixture(scope="module")
-def planted():
-    """(JAX variables with planted detections, spec cfg, uint8 frames)."""
-    cfg = narrow_yolov3()
+def plant_calibrated(cfg):
+    """(JAX variables with planted detections, spec cfg, uint8 frames, head
+    name): ~16 / 8 / 2 candidates an image at head levels 0 / 1 / 2,
+    calibrated on the port's fused f32 head (the same weights)."""
     ref = JaxModel.from_config(cfg, key=jax.random.PRNGKey(0), imgsz=64)
     frames = np.random.default_rng(0).integers(0, 256, (2, IMGSZ, IMGSZ, 3), dtype=np.uint8)
-    x = jnp.asarray(frames, jnp.float32) / 255.0
     head = f"l{len(ref.spec.layers) - 1}"
-    fused = ref.fuse()
-    feats = jax.jit(fused.serving_module().apply, static_argnames="train")(fused.variables, x, train=False)
+    no = ref.spec.nc + 5
+    with torch.no_grad():
+        feats = port_model(ref.variables, cfg).fuse()(torch.from_numpy(frames).float() / 255.0, raw=True)
     gains, deltas = [], []
-    for i, f in enumerate(feats):  # calibrate: ~16/8/2 candidates per image and scale
-        f = np.asarray(f, np.float32)
-        b0 = np.asarray(ref.variables["params"][head][f"m{i}"]["bias"])[4::85]
-        spread = f[..., 4::85] - b0
+    for i, f in enumerate(feats):
+        f = f.numpy()
+        b0 = np.asarray(ref.variables["params"][head][f"m{i}"]["bias"])[4::no]
+        spread = f[..., 4::no] - b0
         g = float(np.clip(2.0 / max(spread.std(), 1e-8), 1.0, 1e6))
         q = np.quantile(g * spread + b0, 1.0 - (16, 8, 2)[i] / spread[0].size)
         gains.append(g)
         deltas.append(float(np.log(CONF / (1 - CONF))) + 0.05 - q)
-    return plant(ref.variables, head, gains, deltas), cfg, frames, head
+    return plant(ref.variables, head, gains, deltas, no=no), cfg, frames, head
+
+
+@pytest.fixture(scope="module")
+def planted():
+    """yolov3's planted weights (tests/test_torch_layout.py's fixture)."""
+    return plant_calibrated(narrow_yolov3())
+
+
+@pytest.fixture(scope="module", params=FAMILY)
+def family(request):
+    """Each configuration's planted weights, and the JAX fused f32 decode and
+    NMS of its frames: (variables, cfg, frames, head, (dets, n, overflow))."""
+    variables, cfg, frames, head = plant_calibrated(narrow_cfg(request.param))
+    ref = JaxModel(jax_parse_spec(cfg), variables).fuse()
+    x = jnp.asarray(frames, jnp.float32) / 255.0
+    feats = jax.jit(ref.serving_module().apply, static_argnames="train")(ref.variables, x, train=False)
+    jb, js, jc, jov = jax_decode_topk_nhwc(feats, ref.anchors_px, ref.spec.strides, conf_thres=CONF,
+                                           with_overflow=True)
+    want, want_n = (np.asarray(a) for a in jax_nms_from_candidates(jb, js, jc))
+    return variables, cfg, frames, head, (want, want_n, np.asarray(jov))
 
 
 def port_model(variables, cfg):
@@ -88,29 +120,28 @@ def port_model(variables, cfg):
     return load_jax_variables(model, variables)
 
 
-def test_slice_matches_jax(planted):
-    variables, cfg, frames, _ = planted
-    ref = JaxModel(jax_parse_spec(cfg), variables).fuse()
-    x = jnp.asarray(frames, jnp.float32) / 255.0
-    feats = jax.jit(ref.serving_module().apply, static_argnames="train")(ref.variables, x, train=False)
-    jb, js, jc, jov = jax_decode_topk_nhwc(feats, ref.anchors_px, ref.spec.strides, conf_thres=CONF,
-                                           with_overflow=True)
-    want, want_n = (np.asarray(a) for a in jax_nms_from_candidates(jb, js, jc))
-
-    fused = port_model(variables, cfg).fuse()
-    with torch.no_grad():
-        pfeats = fused(torch.from_numpy(frames).float() / 255.0, raw=True)
-    pb, ps, pc, pov = decode_topk_nhwc(pfeats, fused.anchors_px, fused.spec.strides, conf_thres=CONF,
-                                       with_overflow=True)
-    got, got_n = (a.numpy() for a in nms_from_candidates(pb, ps, pc))
-    np.testing.assert_array_equal(pov.numpy(), np.asarray(jov))
-    assert not pov.any()
+def assert_rows_match(got, got_n, want, want_n):
+    """n equal; per image the first n rows within boxes 0.1, conf 1e-3, classes equal."""
     np.testing.assert_array_equal(got_n, want_n)
     assert want_n.min() > 0
     for b, k in enumerate(want_n):
         np.testing.assert_allclose(got[b, :k, :4], want[b, :k, :4], atol=0.1)
         np.testing.assert_allclose(got[b, :k, 4], want[b, :k, 4], atol=1e-3)
         np.testing.assert_array_equal(got[b, :k, 5], want[b, :k, 5])
+
+
+def test_slice_matches_jax(family):
+    variables, cfg, frames, _, (want, want_n, jov) = family
+    fused = port_model(variables, cfg).fuse()
+    with torch.no_grad():
+        pfeats = fused(torch.from_numpy(frames).float() / 255.0, raw=True)
+    assert len(pfeats) == fused.spec.nl == (2 if cfg["name"] == "yolov3-tiny" else 3)
+    pb, ps, pc, pov = decode_topk_nhwc(pfeats, fused.anchors_px, fused.spec.strides, conf_thres=CONF,
+                                       with_overflow=True)
+    got, got_n = (a.numpy() for a in nms_from_candidates(pb, ps, pc))
+    np.testing.assert_array_equal(pov.numpy(), jov)
+    assert not pov.any()
+    assert_rows_match(got, got_n, want, want_n)
     assert (got[:, :, 4] > 0).sum(1).tolist() == got_n.tolist()
 
 
@@ -146,14 +177,25 @@ def check_rows(dets, n):
         assert (d[k:] == 0).all()
 
 
-def test_batched_infer_and_microbatcher(planted):
-    variables, cfg, frames, _ = planted
+def test_batched_infer_and_microbatcher(family, monkeypatch):
+    variables, cfg, frames, _, (want, want_n, _) = family
     infer = build_batched_infer(port_model(variables, cfg))
     dets, n = infer(frames)
     dets = dets.numpy()
     assert dets.shape == (2, 300, 6) and n.shape == (2,) and infer.fallbacks == 0
     check_rows(dets, n)
     assert n.min() > 0
+
+    # the fast path in float32 (its serving cast off) against the JAX decode and NMS: the bf16 forwards
+    # round apart across the packages (tests/test_torch_serve_pipeline.py::test_pipeline_matches_jax)
+    import yolov3_tpu_torch.serve as port_serve
+
+    with monkeypatch.context() as m:
+        m.setattr(port_serve, "cast_for_inference", lambda model: model)
+        f32_infer = build_batched_infer(port_model(variables, cfg))
+    f32_dets, f32_n = f32_infer(frames)
+    assert f32_infer.serving_model.dtype == torch.float32 and f32_infer.fallbacks == 0
+    assert_rows_match(f32_dets.numpy(), np.asarray(f32_n), want, want_n)
 
     # a long wait, so the three requests always coalesce into one bucket-4 call
     batcher = MicroBatcher(infer, max_batch=4, batch_wait_ms=2000.0)
@@ -176,13 +218,16 @@ def test_batched_infer_and_microbatcher(planted):
         np.testing.assert_array_equal(d, dets4[i, :k].numpy())
 
 
-def test_fallback_on_overflow(planted):
-    variables, cfg, frames, head = planted
+def test_fallback_on_overflow(family):
+    variables, cfg, frames, head, _ = family
+    no = cfg.get("nc", 80) + 5
     dense = to_numpy_tree(variables)
-    # every scale-0 cell is a candidate: 768 at 128 px, over its top-k of 256
-    dense["params"][head]["m0"]["bias"][4::85] += 10.0
+    # every level-0 cell is a candidate: 768 (yolov3, -spp) or 192 (tiny, stride 16) at 128 px, over a
+    # level-0 top-k of 128
+    dense["params"][head]["m0"]["bias"][4::no] += 10.0
+    k_per_scale = (128, 64, 32)
     model = port_model(dense, cfg)
-    infer = build_batched_infer(model)
+    infer = build_batched_infer(model, k_per_scale=k_per_scale)
     _, _, overflow = infer.fast_fn(frames)
     assert overflow.all()
     dets, n = infer(frames)
@@ -192,3 +237,11 @@ def test_fallback_on_overflow(planted):
     np.testing.assert_array_equal(np.asarray(n), full_n.numpy())
     check_rows(dets.numpy(), np.asarray(n))
     assert np.asarray(n).min() > 0
+
+    # the fallback's full path (float32 forward, full decode, batched NMS) against the JAX package's on
+    # the planted weights, whose detections are not ties of a saturated score
+    jax_full = jax_build_batched_infer(JaxModel(jax_parse_spec(cfg), jax.tree.map(jnp.asarray, variables)),
+                                       k_per_scale=k_per_scale).full_jit
+    want, want_n = (np.asarray(a) for a in jax_full(frames))
+    got, got_n = (a.numpy() for a in build_batched_infer(port_model(variables, cfg)).full_fn(frames))
+    assert_rows_match(got, got_n, want, want_n)

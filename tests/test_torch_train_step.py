@@ -13,11 +13,13 @@ compounded over the steps).
 """
 
 import dataclasses
+from pathlib import Path
 
 import jax
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from yolov3_tpu.models.detection import DetectionModel as JaxModel
 from yolov3_tpu.train.loss import LossConfig as JaxLossConfig
@@ -50,6 +52,7 @@ SPEC = {
         {"from": [6, 8], "n": 1, "op": "Detect", "args": ["nc", "anchors"]},
     ],
 }
+ROOT = Path(__file__).resolve().parents[1]
 HYP = {"lr0": 0.01, "lrf": 0.01, "momentum": 0.9, "weight_decay": 0.0005, "warmup_epochs": 0.0}
 OPT_ARGS = dict(epochs=10, steps_per_epoch=10, batch_size=64, min_warmup_steps=0)  # nbs 64: no accumulation
 N_ROUTED = 6  # the stem, 4 Bottleneck cv2, layer 8
@@ -66,16 +69,16 @@ def make_batch():
     return imgs, targets, mask
 
 
-def build_pair(autobalance=False):
+def build_pair(autobalance=False, cfg=SPEC):
     """(JAX step, JAX state), (port step with its state): same weights, same optimizer settings."""
-    ref = JaxModel.from_config(SPEC, imgsz=64)
+    ref = JaxModel.from_config(cfg, imgsz=64)
     variables = jax.tree.map(np.asarray, ref.variables)  # the JAX step donates its state's buffers
     tx, _, _ = jax_build_optimizer("sgd", ref.params, HYP, **OPT_ARGS)
     ref_cfg = dataclasses.replace(JaxLossConfig.from_model(ref.spec, HYP), autobalance=autobalance)
     ref_step = jax_make_train_step(ref.module, ref_cfg, tx)
     ref_state = jax_init_train_state(ref, tx, loss_cfg=ref_cfg)
 
-    model = load_jax_variables(DetectionModel(parse_spec(SPEC)), variables)
+    model = load_jax_variables(DetectionModel(parse_spec(cfg)), variables)
     optimizer, _, accumulate = build_optimizer("sgd", model, HYP, **OPT_ARGS)
     assert accumulate == 1
     cfg = dataclasses.replace(LossConfig.from_model(model.spec, HYP), autobalance=autobalance)
@@ -127,6 +130,36 @@ def test_five_step_trajectory_matches_jax():
     # the comparison is not vacuous: everything moved
     for key, v in start.items():
         assert not torch.equal(v, end[key]), key
+
+
+@pytest.mark.parametrize("name", ["yolov3-spp", "yolov3-tiny"])
+def test_one_step_of_the_published_configs_matches_jax(name):
+    """One step of yolov3-spp (SPP's 5/9/13 pools) and yolov3-tiny (ZeroPad2d +
+    MaxPool(2, 1), a two-level head), narrowed as tests/test_torch_model.py
+    narrows them: every stride-1 3x3 conv with a BatchNorm through the
+    conv+statistics route, losses and the whole train state against JAX's."""
+    cfg = yaml.safe_load((ROOT / "yolov3_tpu/models/configs" / f"{name}.yaml").read_text())
+    cfg.update(name=name, **(dict(nc=3) if name == "yolov3-tiny" else dict(width_multiple=0.125, depth_multiple=0.33)))
+    (ref_step, ref_state), step = build_pair(cfg=cfg)
+    model = step.state.model
+    routed = sum(isinstance(m, Conv) and m.stats_route for m in model.modules())
+    calls = []
+    real = model.model[0].bn_stats_fn
+
+    def counting(x, w):
+        calls.append(tuple(x.shape))
+        return real(x, w)
+
+    step_counted = make_train_step(model, LossConfig.from_model(model.spec, HYP), step.state.optimizer,
+                                   state=step.state, compute_dtype=torch.float32, bn_stats_fn=counting)
+    batch = make_batch()
+    ref_state, ref_metrics = ref_step(ref_state, *batch)
+    metrics = step_counted(*batch)
+    for key in ("loss", "lbox", "lobj", "lcls"):
+        np.testing.assert_allclose(float(metrics[key]), float(ref_metrics[key]), rtol=1e-3, err_msg=key)
+    assert len(calls) == routed and routed == (9 if name == "yolov3-tiny" else 18)
+    end = assert_states_match(step.state, ref_state)
+    assert end["step"] == end["optimizer/updates"] == 1
 
 
 def test_train_state_carries_across_mid_run():

@@ -211,7 +211,11 @@ DATASET_YAMLS = ("Argoverse", "GlobalWheat2020", "Objects365", "SKU-110K", "VOC"
 @pytest.mark.parametrize("name", DATASET_YAMLS)
 def test_dataset_yaml_loads_as_in_jax(name, tmp_path, monkeypatch):
     port_yaml = ROOT / "yolov3_tpu_torch" / "data" / f"{name}.yaml"
-    assert port_yaml.read_text() == (ROOT / "yolov3_tpu" / "data" / f"{name}.yaml").read_text()
+    # every value is JAX's, but a `download: bash` recipe runs the port's own copy of the script
+    want_values = yaml.safe_load((ROOT / "yolov3_tpu" / "data" / f"{name}.yaml").read_text())
+    if str(want_values.get("download", "")).startswith("bash yolov3_tpu/"):
+        want_values["download"] = want_values["download"].replace("yolov3_tpu/", "yolov3_tpu_torch/", 1)
+    assert yaml.safe_load(port_yaml.read_text()) == want_values
     datasets = tmp_path / "a" / "datasets"  # a relative `path: ../datasets/x` stays inside tmp_path
     datasets.mkdir(parents=True)
     monkeypatch.setattr(dataset_yaml, "DATASETS_DIR", datasets)

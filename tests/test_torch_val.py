@@ -5,7 +5,9 @@
    the box helpers on torch tensors within float32 rounding of their numpy
    results.
 2. `validator.run` of both packages on the same narrowed yolov3 (nc=3,
-   weights carried across with models.convert), with detections planted on
+   weights carried across with models.convert; the metrics, detections and
+   losses also on yolov3-spp and yolov3-tiny, narrowed as
+   tests/test_torch_model.py narrows them), with detections planted on
    the head bias and distinct class biases, so that near-ties do not decide
    NMS. The batches come from the JAX DataLoader over a small synthetic rect
    dataset at 96 px (three batch shapes, the last one partial), labelled
@@ -207,9 +209,13 @@ def test_batched_nms_takes_nms_fn():
 # --- 2. validator.run against the JAX validator ------------------------------
 
 
-def narrow_cfg():
-    d = yaml.safe_load((ROOT / "yolov3_tpu/models/configs/yolov3.yaml").read_text())
-    d.update(name="yolov3", width_multiple=0.125, depth_multiple=0.33, nc=NC)
+FAMILY = ("yolov3", "yolov3-spp", "yolov3-tiny")
+
+
+def narrow_cfg(name="yolov3"):
+    """A published config at nc=3; yolov3 and yolov3-spp also at width 0.125 and depth 0.33."""
+    d = yaml.safe_load((ROOT / "yolov3_tpu/models/configs" / f"{name}.yaml").read_text())
+    d.update(name=name, nc=NC, **({} if name == "yolov3-tiny" else dict(width_multiple=0.125, depth_multiple=0.33)))
     return d
 
 
@@ -262,9 +268,10 @@ class Recorder:
 
 
 @pytest.fixture(scope="module")
-def val_runs(tmp_path_factory):
-    """Both validators on the same model and batches; returns their results."""
-    cfg = narrow_cfg()
+def val_runs(request, tmp_path_factory):
+    """Both validators on the same model and batches; returns their results.
+    The configuration is the test's indirect parameter (one of FAMILY)."""
+    cfg = narrow_cfg(request.param)
     ref = JaxModel.from_config(cfg, key=jax.random.PRNGKey(0), imgsz=64)
     head = f"l{len(ref.spec.layers) - 1}"
     probe = port_model(ref.variables, cfg)
@@ -272,11 +279,12 @@ def val_runs(tmp_path_factory):
     with torch.no_grad():
         feats = probe(torch.from_numpy(frames).float() / 255.0)
     gains, deltas = [], []
-    for i, f in enumerate(feats):  # ~4 / 2 / 1 cells an image above conf 0.25, logits spread 4
+    targets = {8: 4, 16: 2, 32: 1}  # cells an image above conf 0.25 at each head stride, logits spread 4
+    for i, (f, stride) in enumerate(zip(feats, ref.spec.strides)):
         b0 = np.asarray(ref.variables["params"][head][f"m{i}"]["bias"])[4::NC + 5]
         spread = f[..., 4].numpy() - b0[None, :, None, None]
         g = float(np.clip(4.0 / max(spread.std(), 1e-8), 1.0, 1e6))
-        q = np.quantile(g * spread + b0[None, :, None, None], 1.0 - (4, 2, 1)[i] / spread[0].size)
+        q = np.quantile(g * spread + b0[None, :, None, None], 1.0 - targets[stride] / spread[0].size)
         gains.append(g)
         deltas.append(float(np.log(0.25 / 0.75)) + 0.05 - q)
     variables = plant(ref.variables, head, gains, deltas)
@@ -285,7 +293,7 @@ def val_runs(tmp_path_factory):
 
     # landscape, square and portrait frames: batch shapes (96, 128), (128, 128), (128, 96), the last partial
     sizes = [(72, 96), (66, 96), (96, 96), (96, 72), (96, 70)]
-    root = tmp_path_factory.mktemp("valds")
+    root = tmp_path_factory.mktemp(f"valds-{request.param}")
     images = write_dataset(root / "unlabelled", sizes, seed=7)
     # labels: the port's own detections above conf 0.25, in native normalised xywh
     labels = {}
@@ -325,13 +333,19 @@ def val_runs(tmp_path_factory):
     return out
 
 
+@pytest.mark.parametrize("val_runs", FAMILY, indirect=True)
 def test_val_metrics_match_jax(val_runs):
     got, want = val_runs["port"]["results"][:4], val_runs["jax"]["results"][:4]
-    assert want[2] > 0.9, f"the self-labelled set should give mAP50 near 1, got {want}"
+    # the random yolov3-tiny's box regression puts a few detections above conf 0.25 in the top row of these
+    # 96 px frames at zero height; no label keeps a zero-size box, so both packages count them as false
+    # positives (mAP50 0.84): its set is self-labelled but not clean
+    assert want[2] > (0.8 if val_runs["model"].spec.name == "yolov3-tiny" else 0.9), \
+        f"the self-labelled set should give mAP50 near 1, got {want}"
     np.testing.assert_allclose(got, want, rtol=0, atol=0.005)
     np.testing.assert_allclose(val_runs["port"]["maps"], val_runs["jax"]["maps"], rtol=0, atol=0.005)
 
 
+@pytest.mark.parametrize("val_runs", FAMILY, indirect=True)
 def test_val_detections_match_jax(val_runs):
     got, want = val_runs["port"]["preds"], val_runs["jax"]["preds"]
     assert sorted(got) == sorted(want) and len(want) == 5
@@ -344,6 +358,7 @@ def test_val_detections_match_jax(val_runs):
     assert sum(map(len, want.values())) > 20
 
 
+@pytest.mark.parametrize("val_runs", ["yolov3"], indirect=True)
 def test_val_sharded_equals_unsharded(val_runs):
     """validator.run over a mesh of two CPU shards (the last batch, of one
     image, unsharded): the same metrics, per-image detections and losses as
@@ -363,12 +378,14 @@ def test_val_sharded_equals_unsharded(val_runs):
         np.testing.assert_allclose(rec.preds[stem], w, rtol=1e-5, atol=1e-4, err_msg=stem)
 
 
+@pytest.mark.parametrize("val_runs", FAMILY, indirect=True)
 def test_val_losses_match_jax(val_runs):
     got, want = val_runs["port"]["results"][4:], val_runs["jax"]["results"][4:]
     assert len(got) == 3 and (want > 0).all()
     np.testing.assert_allclose(got, want, rtol=2e-3)
 
 
+@pytest.mark.parametrize("val_runs", ["yolov3"], indirect=True)
 def test_val_txt_and_coco_json_match_jax(val_runs, tmp_path):
     """save_txt/save_conf and save_json write the same files as the JAX run (the
     COCO eval finds no annotations here and is skipped by both with a warning)."""
@@ -389,6 +406,7 @@ def test_val_txt_and_coco_json_match_jax(val_runs, tmp_path):
     np.testing.assert_allclose([d["score"] for d in got], [d["score"] for d in want], atol=1e-3)
 
 
+@pytest.mark.parametrize("val_runs", ["yolov3"], indirect=True)
 def test_val_plain_nms_gives_the_same_metrics(val_runs):
     results, maps, speeds = validator.run(val_runs["data"], model=val_runs["model"],
                                           dataloader=val_runs["batches"], nms_fn=greedy_nms_plain)
@@ -396,6 +414,7 @@ def test_val_plain_nms_gives_the_same_metrics(val_runs):
     assert len(speeds) == 3 and all(s >= 0 for s in speeds)
 
 
+@pytest.mark.parametrize("val_runs", ["yolov3"], indirect=True)
 def test_val_half_runs_and_leaves_the_model(val_runs):
     model = val_runs["model"]
     before = {k: v.clone() for k, v in model.state_dict().items()}
@@ -405,6 +424,7 @@ def test_val_half_runs_and_leaves_the_model(val_runs):
     assert all(torch.equal(v, model.state_dict()[k]) for k, v in before.items())
 
 
+@pytest.mark.parametrize("val_runs", ["yolov3"], indirect=True)
 def test_val_speed_task_uses_benchmark_settings(val_runs):
     calls = []
 
@@ -416,6 +436,7 @@ def test_val_speed_task_uses_benchmark_settings(val_runs):
     assert len(calls) == 3 and all(iou == 0.45 and (s is None or s > 0.25) for s, iou in calls)
 
 
+@pytest.mark.parametrize("val_runs", ["yolov3"], indirect=True)
 def test_val_save_hybrid_matches_jax(val_runs):
     """save_hybrid=True: the labels join each batch's predictions as
     confidence-1 candidates before the host NMS, in both packages. Metrics
@@ -444,6 +465,7 @@ def test_val_save_hybrid_matches_jax(val_runs):
     assert sum((g[:, 4] == 1.0).sum() for g in got_preds.values()) > sum((g[:, 4] == 1.0).sum() for g in plain.values())
 
 
+@pytest.mark.parametrize("val_runs", ["yolov3"], indirect=True)
 def test_val_plots_match_jax(val_runs, tmp_path, monkeypatch):
     """plots=True: the same files as the JAX validator (PNG for JPEG), drawn from
     the same inputs. The mosaics' images, labels and masks are equal; the

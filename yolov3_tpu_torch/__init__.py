@@ -14,9 +14,9 @@ Entry points take `device=None`, meaning "cuda"; without a CUDA device they
 raise unless the caller passes `device="cpu"`, where every kernel wrapper
 runs its plain PyTorch version.
 
-    from yolov3_tpu_torch.models.detection import DetectionModel
+    from yolov3_tpu_torch import load_model
     from yolov3_tpu_torch.serve import MicroBatcher, build_batched_infer
-    model = DetectionModel.from_config("yolov3", seed=0)
+    model = load_model("yolov3")              # a cfg name: seeded random weights
     batcher = MicroBatcher(build_batched_infer(model), max_batch=32)
     dets, n = batcher.submit(frame_640x640x3_uint8)
 
@@ -27,6 +27,29 @@ cfg="yolov3")` trains from images on disk through the data pipeline (data/),
 whose host image ops are the package's own C++ (csrc/host_ops.cpp, built
 with the system C++ compiler at first use), validates every epoch and
 writes checkpoints (utils/checkpoint.py).
+
+`load_model`, `DetectionModel` and `build_model` are the package root's
+names, as in the JAX package; they load on first use (a module
+`__getattr__`), so importing a submodule does not import the model graph.
 """
 
 __version__ = "0.1.0"
+
+__all__ = ["DetectionModel", "build_model", "load_model"]
+
+
+def load_model(weights, ch=3, nc=None, device=None):
+    """A DetectionModel from a config name / YAML (seeded random weights), a
+    port checkpoint directory or a reference `.pt` (models/loading.py), on
+    `device` (None means "cuda" and raises without one)."""
+    from yolov3_tpu_torch.models.loading import load_weights
+
+    return load_weights(weights, ch=ch, nc=nc, device=device)
+
+
+def __getattr__(name):
+    if name in ("DetectionModel", "build_model"):
+        from yolov3_tpu_torch.models import detection
+
+        return getattr(detection, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -22,11 +22,14 @@ import torch.nn.functional as F
 from yolov3_tpu_torch.ops.score_cuda import masked_scores
 
 
-def detect_bias(nc: int, na: int, stride: float) -> torch.Tensor:
-    """Objectness/class prior bias (reference yolo.py:282-292):
-    obj ~ log(8 objects / (640/stride)^2 cells), cls ~ log(0.6/(nc-1))."""
+def detect_bias_init(nc: int, na: int, stride: float, imgsz: float = 640.0) -> torch.Tensor:
+    """Objectness/class prior bias of one head conv, (na * (nc + 5),) float32
+    (reference yolo.py:282-292): obj ~ log(8 objects / (imgsz/stride)^2
+    cells), cls ~ log(0.6/(nc-1)). The JAX package's `detect_bias_init`
+    returns a flax initializer of these values; the port's initialiser
+    copies the tensor into the bias."""
     b = np.zeros((na, nc + 5), dtype=np.float32)
-    b[:, 4] += math.log(8.0 / (640.0 / stride) ** 2)
+    b[:, 4] += math.log(8.0 / (imgsz / stride) ** 2)
     b[:, 5 : 5 + nc] += math.log(0.6 / (nc - 0.99999))
     return torch.from_numpy(b.reshape(-1))
 

@@ -32,13 +32,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from yolov3_tpu_torch.models.detect_head import Detect, decode_predictions, detect_bias
+from yolov3_tpu_torch.models.detect_head import Detect, decode_predictions, detect_bias_init
 from yolov3_tpu_torch.models.fuse import fuse_state_dict
 from yolov3_tpu_torch.models.spec import ModelSpec, parse_spec
 from yolov3_tpu_torch.nn import activations
 from yolov3_tpu_torch.nn.activations import AconC, MetaAconC
 from yolov3_tpu_torch.nn.modules import INPUT_CHANNEL_OPS, MODULE_REGISTRY, MULTI_INPUT_OPS, Conv, recomputing
-from yolov3_tpu_torch.utils.general import select_device
+from yolov3_tpu_torch.utils.general import LOGGER, select_device
 
 
 def _build_layer(spec: ModelSpec, ls, fused):
@@ -137,7 +137,7 @@ class DetectionModel(nn.Module):
                     m.beta.fill_(1.0)
         for conv, s in zip(detect.m, detect.strides):
             conv.weight.normal_(0.0, 1.0 / math.sqrt(conv.weight[0].numel()), generator=generator)
-            conv.bias.copy_(detect_bias(detect.nc, detect.na, s))
+            conv.bias.copy_(detect_bias_init(detect.nc, detect.na, s))
 
     @property
     def dtype(self):
@@ -157,6 +157,14 @@ class DetectionModel(nn.Module):
 
     def num_params(self):
         return sum(p.numel() for p in self.parameters())
+
+    def info(self, imgsz=640):
+        """Log the JAX package's summary line (layers, parameters, strides,
+        nc) and return the parameter count; `imgsz` is accepted as there."""
+        n_p = self.num_params()
+        LOGGER.info(f"{self.spec.name}: {len(self.spec.layers)} spec layers, {n_p:,} parameters, "
+                    f"strides {list(self.spec.strides)}, nc={self.spec.nc}")
+        return n_p
 
     def forward(self, x, raw=False, remat=False, remat_segment=6, remat_until=-1, raw_pad=0):
         """x: (B, H, W, C) NHWC images in [0, 1].
@@ -228,6 +236,11 @@ class DetectionModel(nn.Module):
         fused.load_state_dict(sd, assign=True)
         fused.names = dict(self.names)
         return fused.eval()
+
+
+def build_model(cfg="yolov3-tiny", **kw) -> DetectionModel:
+    """`DetectionModel.from_config(cfg, **kw)` (yolov3_tpu/models/detection.py build_model)."""
+    return DetectionModel.from_config(cfg, **kw)
 
 
 class _ServingGraph(nn.Module):
@@ -343,7 +356,6 @@ def _main(argv=None):
     """The model self-test (JAX models/detection.py:_main, reference models/yolo.py:395-415)."""
     import argparse
 
-    from yolov3_tpu_torch.utils.general import LOGGER
     from yolov3_tpu_torch.utils.profiling import model_info, profile_layers
 
     p = argparse.ArgumentParser()

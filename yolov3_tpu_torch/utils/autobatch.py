@@ -15,7 +15,17 @@ import copy
 
 import torch
 
-from yolov3_tpu_torch.utils.general import LOGGER
+from yolov3_tpu_torch.utils.general import LOGGER, select_device
+
+
+def hbm_bytes(device=None):
+    """Total memory of the card `device` (None means "cuda" and raises
+    without one), from torch.cuda.get_device_properties; the CPU raises
+    ValueError. The JAX package reads the TPU's HBM limit."""
+    device = select_device(device)
+    if device.type != "cuda":
+        raise ValueError(f"hbm_bytes measures a card's memory; {device} is not a CUDA device")
+    return int(torch.cuda.get_device_properties(device).total_memory)
 
 
 def _peak_bytes(model, batch, imgsz, compute_dtype):
@@ -49,7 +59,7 @@ def check_train_batch_size(model, imgsz=640, fraction=0.8, compute_dtype=torch.b
         torch.cuda.empty_cache()
     slope = max((m1 - m0) / (b1 - b0), 1.0)
     fixed = m0 - slope * b0 + 2 * sum(p.numel() * 4 for p in model.parameters())
-    total = torch.cuda.get_device_properties(device).total_memory
+    total = hbm_bytes(device)
     b = int((total * fraction - fixed) // slope)
     b = max(1, min(b, MAX_BATCH))
     LOGGER.info(f"AutoBatch: batch-size {b} ({slope / 2**20:.0f} MiB per image, {fixed / 2**30:.2f} GiB fixed, "
