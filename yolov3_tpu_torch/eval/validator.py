@@ -23,6 +23,13 @@ Without one, `run` builds the loader of `data` (a dataset YAML or dict) as
 the JAX validator does: the `task` split, letterboxed to imgsz, rect
 batches with pad 0.5.
 
+Spans (utils/tracing.py), a batch each: `val/copy_in`, `val/forward`,
+`val/decode`, `val/nms` (the multi-label `batched_nms`, the NMS kernel),
+`val/fetch` (the counts and the valid prefix to the host) and `val/match`
+(the per-image host loop: scale-back, matching, callbacks); once a run,
+`val/map` (the aggregation, `ap_per_class` included). `speeds` stay the
+`Profile` times of the pre, inference+NMS and post stages.
+
 With `plots=True` (as the JAX validator; utils/plots.py) it writes to
 save_dir the label and prediction mosaics of the first three batches
 (val_batch{i}_labels.jpg / _pred.jpg), the PR, F1, P and R curves where a
@@ -48,6 +55,7 @@ from yolov3_tpu_torch.ops.nms import batched_nms, non_max_suppression
 from yolov3_tpu_torch.train.loss import compute_loss
 from yolov3_tpu_torch.utils.general import LOGGER, Profile, coco80_to_coco91_class
 from yolov3_tpu_torch.utils.plots import plot_confusion_matrix, plot_images, plot_mc_curve, plot_pr_curve
+from yolov3_tpu_torch.utils.tracing import span
 
 
 def run(
@@ -171,7 +179,7 @@ def run(
     seen = n_plotted = 0
 
     for imgs, targets, mask, shapes in dataloader:
-        with dt[0]:
+        with dt[0], span("val/copy_in"):
             imgs_dev = torch.as_tensor(imgs).to(device)
         with dt[1]:
             if save_hybrid:  # apriori label injection -> host-facing NMS (reference val.py:374)
@@ -179,8 +187,10 @@ def run(
                 gain = np.array([wb, hb, wb, hb], np.float32)
                 lb = [np.concatenate([t[:, 0:1], t[:, 1:5] * gain], 1) if len(t) else np.zeros((0, 5), np.float32)
                       for t in (targets[si][mask[si]] for si in range(imgs.shape[0]))]
-                dets_list = non_max_suppression(forward(imgs_dev), conf_thres, nms_iou, multi_label=True, labels=lb,
-                                                max_det=max_det, max_nms=max_nms, device=device, nms_fn=nms_fn)
+                pred = forward(imgs_dev)
+                with span("val/nms"):
+                    dets_list = non_max_suppression(pred, conf_thres, nms_iou, multi_label=True, labels=lb,
+                                                    max_det=max_det, max_nms=max_nms, device=device, nms_fn=nms_fn)
                 n_valid = np.array([len(d) for d in dets_list])
                 dets = np.zeros((imgs.shape[0], max_det, 6), np.float32)
                 for si, d in enumerate(dets_list):
@@ -198,7 +208,7 @@ def run(
             _plot_val_batch(imgs, targets, mask, dets, n_valid, n_plotted, Path(save_dir), names)
             n_plotted += 1
 
-        with dt[2]:
+        with dt[2], span("val/match"):
             h, w = imgs.shape[1:3]
             for si in range(imgs.shape[0]):
                 seen += 1
@@ -243,21 +253,23 @@ def run(
                     _append_coco_json(jdict, pred, Path(dataloader.dataset.im_files[seen - 1]), class_map)
 
     # aggregate (the zero-batch and zero-TP paths must not crash)
-    if stats:
-        stats_cat = [np.concatenate([s[i] for s in stats], 0) for i in range(4)]
-    else:
-        stats_cat = [np.zeros((0, niou), bool), np.zeros(0), np.zeros(0), np.zeros(0)]
-    p = r = ap50 = ap_mean = np.zeros(0)
-    if len(stats_cat) and stats_cat[0].any():
-        tp, fp, p, r, f1, ap, ap_class, *curves = ap_per_class(*stats_cat, curves=plots)
-        ap50, ap_mean = ap[:, 0], ap.mean(1)
-        mp, mr, map50, map_ = p.mean(), r.mean(), ap50.mean(), ap_mean.mean()
-        if plots:
-            _plot_curves(*curves, ap, [str(names.get(int(c), c)) for c in ap_class], Path(save_dir))
-    else:
-        mp = mr = map50 = map_ = 0.0
-        ap_mean = np.zeros(nc)
-        ap_class = np.array([], int)
+    with span("val/map"):
+        if stats:
+            stats_cat = [np.concatenate([s[i] for s in stats], 0) for i in range(4)]
+        else:
+            stats_cat = [np.zeros((0, niou), bool), np.zeros(0), np.zeros(0), np.zeros(0)]
+        p = r = ap50 = ap_mean = np.zeros(0)
+        curves = None
+        if len(stats_cat) and stats_cat[0].any():
+            tp, fp, p, r, f1, ap, ap_class, *curves = ap_per_class(*stats_cat, curves=plots)
+            ap50, ap_mean = ap[:, 0], ap.mean(1)
+            mp, mr, map50, map_ = p.mean(), r.mean(), ap50.mean(), ap_mean.mean()
+        else:
+            mp = mr = map50 = map_ = 0.0
+            ap_mean = np.zeros(nc)
+            ap_class = np.array([], int)
+    if plots and curves is not None:
+        _plot_curves(*curves, ap, [str(names.get(int(c), c)) for c in ap_class], Path(save_dir))
     if plots:  # whenever plots=True, with or without a right detection (reference val.py confusion_matrix.plot)
         _plot_or_warn("confusion matrix", plot_confusion_matrix, confusion.matrix,
                       [str(names.get(i, i)) for i in range(nc)], Path(save_dir) / "confusion_matrix.png")
@@ -312,11 +324,13 @@ def make_forward(model, conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30
 
         @torch.inference_mode()
         def forward_decoded(imgs_u8):
-            pred = model(imgs_u8)
+            with span("val/forward"):
+                pred = model(imgs_u8)
             if decode_only:
                 return pred
-            return batched_nms(pred, conf_thres=conf_thres, iou_thres=iou_thres, multi_label=True,
-                               max_det=max_det, max_nms=max_nms, nms_fn=nms_fn)
+            with span("val/nms"):
+                return batched_nms(pred, conf_thres=conf_thres, iou_thres=iou_thres, multi_label=True,
+                                   max_det=max_det, max_nms=max_nms, nms_fn=nms_fn)
 
         return forward_decoded
     if half:
@@ -332,16 +346,20 @@ def make_forward(model, conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30
         was_training = net_i.training
         net_i.eval()
         try:
-            x = torch.as_tensor(imgs_u8).to(next(net_i.parameters()).device).float() / 255.0
-            if augment and loss_cfg is None:  # with the loss, the JAX validator runs the plain forward
-                feats, pred = None, predict_augmented(net_i, x)
-            else:
-                feats = net_i(x)
-                pred = decode_predictions(feats, anchors, strides)
+            with span("val/forward"):
+                x = torch.as_tensor(imgs_u8).to(next(net_i.parameters()).device).float() / 255.0
+                if augment and loss_cfg is None:  # with the loss, the JAX validator runs the plain forward
+                    feats, pred = None, predict_augmented(net_i, x)  # the TTA passes decode too
+                else:
+                    feats = net_i(x)
+            if feats is not None:
+                with span("val/decode"):
+                    pred = decode_predictions(feats, anchors, strides)
             if decode_only:
                 return pred
-            dets, n_valid = batched_nms(pred, conf_thres=conf_thres, iou_thres=iou_thres, multi_label=True,
-                                        max_det=max_det, max_nms=max_nms, nms_fn=nms_fn)
+            with span("val/nms"):
+                dets, n_valid = batched_nms(pred, conf_thres=conf_thres, iou_thres=iou_thres, multi_label=True,
+                                            max_det=max_det, max_nms=max_nms, nms_fn=nms_fn)
             return (dets, n_valid) if loss_cfg is None else (dets, n_valid, *feats)
         finally:
             net_i.train(was_training)
@@ -363,6 +381,7 @@ def make_forward(model, conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30
     return forward
 
 
+@span("val/fetch")
 def _fetch_valid(dets, n_valid, max_det):
     """n-first device fetch: the counts, then only the valid score-sorted
     prefix dets[:, :n.max()]; every consumer reads dets[si, :n_valid[si]],

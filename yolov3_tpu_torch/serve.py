@@ -16,8 +16,14 @@ Protocol: POST /predict with a PNG/BMP body (decoded by data/image_ops.py;
 other formats only where cv2 or PIL is installed, else 400) or an
 `application/x-npy` HWC BGR uint8 array -> JSON {detections: [[x1, y1, x2,
 y2, conf, cls], ...] rounded to 4 places, names: {...}, speed_ms}. GET
-/health -> the model's name, imgsz, names and the batcher's device calls and
-requests. A body that does not decode gets 400, another path 404.
+/health -> the model's name, imgsz, names, the batcher's device calls and
+requests, and `stages`: {span name: {count, total_s, p50_ms, p95_ms}} of the
+request path's spans since the process started (p50 / p95 over each one's
+last 1024), `batcher/wait` (the oldest request's queue wait a device call),
+`batcher/assemble`, `batcher/call`, `batcher/fetch`, `batcher/scatter`,
+`pipeline/letterbox`, `pipeline/scale_back` and the `serve/` stages of
+`build_batched_infer` (utils/tracing.py). A body that does not decode gets
+400, another path 404.
 
 Layers, from the socket down: `make_server` (ThreadingHTTPServer, one thread
 a request) -> `build_pipeline`'s predict (letterbox, BGR->RGB, scale-back)
@@ -44,6 +50,7 @@ from yolov3_tpu_torch.models.detection import cast_for_inference
 from yolov3_tpu_torch.models.loading import load_weights
 from yolov3_tpu_torch.ops.nms import batched_nms, nms_from_candidates
 from yolov3_tpu_torch.utils.general import LOGGER
+from yolov3_tpu_torch.utils.tracing import record, span, stats
 
 def _host(t):
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
@@ -68,11 +75,14 @@ def _paths(full_model, serving, conf_thres, iou_thres, max_det, k_per_scale):
 
     @torch.inference_mode()
     def fast_fn(imgs_u8):
-        x = torch.as_tensor(imgs_u8).to(device).to(serving.dtype) / 255.0  # uint8 is exact in bf16
-        feats = serving(x, raw=True)
-        boxes, scores, cls_ids, overflow = decode_topk_nhwc(
-            feats, anchors, strides, k_per_scale=k_per_scale, conf_thres=conf_thres, with_overflow=True)
-        dets, n = nms_from_candidates(boxes, scores, cls_ids, iou_thres=iou_thres, max_det=max_det)
+        with span("serve/forward"):
+            x = torch.as_tensor(imgs_u8).to(device).to(serving.dtype) / 255.0  # uint8 is exact in bf16
+            feats = serving(x, raw=True)
+        with span("serve/decode"):
+            boxes, scores, cls_ids, overflow = decode_topk_nhwc(
+                feats, anchors, strides, k_per_scale=k_per_scale, conf_thres=conf_thres, with_overflow=True)
+        with span("serve/nms"):
+            dets, n = nms_from_candidates(boxes, scores, cls_ids, iou_thres=iou_thres, max_det=max_det)
         return dets, n, overflow
 
     return full_fn, fast_fn
@@ -105,6 +115,13 @@ def build_batched_infer(model, conf_thres=0.25, iou_thres=0.45, max_det=300, fas
     fast=False returns the full path alone: the float32 unfused forward,
     `decode_predictions` and `batched_nms` (max_nms 8192).
 
+    Spans (utils/tracing.py), a batch each: `serve/copy_in` (the images to
+    the device), `serve/forward`, `serve/decode` (top-k decode, the score
+    kernel), `serve/nms` (the NMS kernel), `serve/fetch` (the counts and the
+    overflow flag to the host: the host waits on the device there),
+    `serve/fallback` (the full path after an overflow) and, with fast=False,
+    `serve/full`.
+
     `mesh` (parallel.mesh.Mesh): data-parallel serving. Each device of the
     mesh holds a replica of the model (and of the fused serving model), a
     batch's rows are split evenly over the devices, each runs its rows
@@ -130,17 +147,19 @@ def build_batched_infer(model, conf_thres=0.25, iou_thres=0.45, max_det=300, fas
         full_fn = _sharded(mesh, [p[0] for p in paths], device)
         fast_fn = _sharded(mesh, [p[1] for p in paths], device) if fast else None
     if not fast:
-        return full_fn
+        return span("serve/full")(full_fn)
 
     def infer(imgs_u8):
-        imgs = torch.as_tensor(imgs_u8).to(device, non_blocking=True)
+        with span("serve/copy_in"):
+            imgs = torch.as_tensor(imgs_u8).to(device, non_blocking=True)
         dets, n, overflow = fast_fn(imgs)
-        # one small device->host copy: per-image counts + the overflow-any flag
-        meta = _host(torch.cat([n, overflow.any().to(torch.int32)[None]]))
+        with span("serve/fetch"):  # one small device->host copy: per-image counts + the overflow-any flag
+            meta = _host(torch.cat([n, overflow.any().to(torch.int32)[None]]))
         if meta[-1]:
             LOGGER.info("serve: top-k candidate overflow — falling back to full decode for this batch")
             infer.fallbacks += 1
-            return full_fn(imgs)
+            with span("serve/fallback"):
+                return full_fn(imgs)
         return dets, meta[:-1]
 
     infer.fast_fn, infer.full_fn = fast_fn, full_fn
@@ -159,6 +178,12 @@ class MicroBatcher:
     max_batch itself, or the next doubling where max_batch is not a multiple
     of min_bucket: sharded serving sets min_bucket to the mesh's size, so
     every bucket divides over it.
+
+    Spans (utils/tracing.py), a device call each: `batcher/wait` (how long
+    the oldest request of the call waited between `submit` and dispatch),
+    `batcher/assemble` (the bucket, `np.stack` and padding), `batcher/call`
+    (`infer`), `batcher/fetch` (the valid prefix to the host) and
+    `batcher/scatter` (the rows back to the waiting threads).
     """
 
     def __init__(self, infer, max_batch=8, batch_wait_ms=5.0, min_bucket=1):
@@ -190,7 +215,7 @@ class MicroBatcher:
     def submit(self, im):
         """Blocking: letterboxed HWC uint8 -> ((n, 6) dets ndarray, n)."""
         slot, ev = {}, threading.Event()
-        self.q.put((im, slot, ev))
+        self.q.put((im, slot, ev, time.perf_counter()))
         ev.wait()
         if "err" in slot:
             raise slot["err"]
@@ -208,26 +233,30 @@ class MicroBatcher:
                     items.append(self.q.get(timeout=left))
                 except queue.Empty:
                     break
+            record("batcher/wait", time.perf_counter() - items[0][3])
             try:
                 # stack inside the try: a malformed frame must fail its
                 # waiters, not kill the dispatcher thread
-                bucket = next(b for b in self.buckets if b >= len(items))
-                batch = np.stack([it[0] for it in items] + [items[-1][0]] * (bucket - len(items)))
-                dets, n = self.infer(batch)
-                # rows are score-sorted valid-first: fetch only the valid prefix
-                n = _host(n)
-                dets = _host(dets[:, : int(n.max())])
+                with span("batcher/assemble"):
+                    bucket = next(b for b in self.buckets if b >= len(items))
+                    batch = np.stack([it[0] for it in items] + [items[-1][0]] * (bucket - len(items)))
+                with span("batcher/call"):
+                    dets, n = self.infer(batch)
+                with span("batcher/fetch"):  # rows are score-sorted valid-first: fetch only the valid prefix
+                    n = _host(n)
+                    dets = _host(dets[:, : int(n.max())])
             except Exception as e:  # noqa: BLE001 — fail every waiter, not the server
-                for _, slot, ev in items:
+                for _, slot, ev, _ in items:
                     slot["err"] = e
                     ev.set()
                 continue
             self.calls += 1
             self.requests += len(items)
-            for i, (_, slot, ev) in enumerate(items):
-                slot["dets"] = dets[i, : int(n[i])].astype(np.float32)
-                slot["n"] = int(n[i])
-                ev.set()
+            with span("batcher/scatter"):
+                for i, (_, slot, ev, _) in enumerate(items):
+                    slot["dets"] = dets[i, : int(n[i])].astype(np.float32)
+                    slot["n"] = int(n[i])
+                    ev.set()
 
 
 def build_pipeline(model, imgsz=640, conf_thres=0.25, iou_thres=0.45, max_det=300, max_batch=1,
@@ -239,7 +268,9 @@ def build_pipeline(model, imgsz=640, conf_thres=0.25, iou_thres=0.45, max_det=30
     space-to-depth stem decides nothing here (the layout is plain).
     shard=True: data-parallel serving over every local card
     (parallel.mesh.create_mesh()), or over the devices of `shard` when it is
-    a Mesh; the buckets start at the mesh's size."""
+    a Mesh; the buckets start at the mesh's size. Spans (utils/tracing.py),
+    a request each: `pipeline/letterbox` (letterbox, BGR to RGB, the
+    contiguous copy) and `pipeline/scale_back`."""
     from yolov3_tpu_torch.data.augment import letterbox
     from yolov3_tpu_torch.ops.boxes import scale_boxes
     from yolov3_tpu_torch.parallel.mesh import Mesh, create_mesh
@@ -254,10 +285,12 @@ def build_pipeline(model, imgsz=640, conf_thres=0.25, iou_thres=0.45, max_det=30
 
     def predict(im_bgr):
         h0, w0 = im_bgr.shape[:2]
-        im = letterbox(im_bgr, imgsz, auto=False)[0][:, :, ::-1]  # RGB
-        dets, _n = batcher.submit(np.ascontiguousarray(im))
-        if len(dets):
-            dets[:, :4] = scale_boxes((imgsz, imgsz), dets[:, :4], (h0, w0))
+        with span("pipeline/letterbox"):
+            im = np.ascontiguousarray(letterbox(im_bgr, imgsz, auto=False)[0][:, :, ::-1])  # RGB
+        dets, _n = batcher.submit(im)
+        with span("pipeline/scale_back"):
+            if len(dets):
+                dets[:, :4] = scale_boxes((imgsz, imgsz), dets[:, :4], (h0, w0))
         return dets
 
     predict.batcher = batcher
@@ -303,6 +336,7 @@ def make_server(weights, host="0.0.0.0", port=8507, imgsz=640, conf_thres=0.25, 
                     "model": model.spec.name, "imgsz": imgsz, "names": names, "status": "ok",
                     "batching": {"max_batch": b.max_batch, "device_calls": b.calls,
                                  "requests": b.requests},
+                    "stages": stats(("batcher/", "pipeline/", "serve/")),
                 })
             else:
                 self._json(404, {"error": "unknown path; use GET /health or POST /predict"})

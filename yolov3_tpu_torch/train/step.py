@@ -40,12 +40,12 @@ from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
 from yolov3_tpu_torch.parallel.mesh import all_reduce_sum_, all_reduce_tensors_, replicate, synchronized_statistics
 from yolov3_tpu_torch.train.loss import LossConfig, compute_loss, update_balance
 from yolov3_tpu_torch.train.optim import EMA, ScheduledOptimizer
+from yolov3_tpu_torch.utils.tracing import span
 
 
 @dataclass
@@ -85,9 +85,10 @@ def make_train_step(model, loss_cfg: LossConfig, optimizer, state: TrainState | 
     `lobj`, `lcls` (and `grad_norm` on a call that updated the parameters) are
     0-dim tensors on the model's device, not synchronised with the host.
 
-    The forward, the loss, the optimizer and the EMA run under
-    `torch.profiler.record_function` ranges named `train_step/...`, which a
-    profile of the step reads.
+    The forward, the loss, the backward, the optimizer and the EMA are
+    spans (utils/tracing.py) named `train_step/forward`, `/loss`,
+    `/backward`, `/optimizer` and `/ema`: ranges of a profile of the step,
+    and rows of the span table.
 
     Every call counts one loader batch: the optimizer accumulates and updates
     on its own cadence, the EMA moves on every call.
@@ -129,23 +130,24 @@ def make_train_step(model, loss_cfg: LossConfig, optimizer, state: TrainState | 
         model.set_bn_stats_fn(bn_stats_fn)
         imgs = torch.as_tensor(imgs, device=device)
         with synchronized_statistics(mesh):
-            with record_function("train_step/forward"), \
+            with span("train_step/forward"), \
                     torch.autocast(device.type, dtype=compute_dtype if autocast else None, enabled=autocast):
                 # without autocast the images are normalised in the model's own dtype, as in the JAX step
                 feats = model(normalize_images(imgs, compute_dtype if autocast else model.dtype), **remat_kw)
-            with record_function("train_step/loss"):
+            with span("train_step/loss"):
                 loss, comps, obj_pl = compute_loss(feats, targets, mask, loss_cfg,
                                                    balance=state.balance if autobalance else None,
                                                    return_per_layer_obj=True)
                 loss = loss * loss_scale
-            loss.backward()
+            with span("train_step/backward"):
+                loss.backward()
         loss = loss.detach()
         if mesh:  # the shares' sums: the global batch's loss, components and obj losses
             shares = all_reduce_sum_(torch.cat([loss.reshape(1).to(comps.dtype), comps, obj_pl.to(comps.dtype)]))
             loss, comps, obj_pl = shares[0].to(loss.dtype), shares[1:4], shares[4:].to(obj_pl.dtype)
-        with record_function("train_step/optimizer"):
+        with span("train_step/optimizer"):
             grad_norm = state.optimizer.step()
-        with record_function("train_step/ema"):
+        with span("train_step/ema"):
             state.ema.update(model, decay=ema_decay)
         state.step += 1
         if autobalance:
