@@ -15,14 +15,12 @@ as tests/test_torch_model.py narrows them).
 """
 
 import threading
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import yaml
 
 from yolov3_tpu.models.detect_head import decode_topk_nhwc as jax_decode_topk_nhwc
 from yolov3_tpu.models.detection import DetectionModel as JaxModel
@@ -30,6 +28,7 @@ from yolov3_tpu.models.spec import parse_spec as jax_parse_spec
 from yolov3_tpu.ops.nms import nms_from_candidates as jax_nms_from_candidates
 from yolov3_tpu.serve import build_batched_infer as jax_build_batched_infer
 from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
+from torch_narrow import narrow_cfg
 from yolov3_tpu_torch.models.convert import load_jax_variables
 from yolov3_tpu_torch.models.detect_head import decode_topk_nhwc
 from yolov3_tpu_torch.models.detection import DetectionModel
@@ -37,18 +36,9 @@ from yolov3_tpu_torch.models.spec import parse_spec
 from yolov3_tpu_torch.ops.nms import nms_from_candidates
 from yolov3_tpu_torch.serve import MicroBatcher, build_batched_infer
 
-ROOT = Path(__file__).resolve().parents[1]
 IMGSZ = 128
 CONF = 0.25
 FAMILY = ("yolov3", "yolov3-spp", "yolov3-tiny")
-
-
-def narrow_cfg(name):
-    """The published config narrowed as tests/test_torch_model.py does: yolov3
-    and yolov3-spp at width 0.125 and depth 0.33, yolov3-tiny at nc 3."""
-    d = yaml.safe_load((ROOT / "yolov3_tpu/models/configs" / f"{name}.yaml").read_text())
-    d.update(name=name, **(dict(nc=3) if name == "yolov3-tiny" else dict(width_multiple=0.125, depth_multiple=0.33)))
-    return d
 
 
 def narrow_yolov3():

@@ -88,7 +88,11 @@ def make_grid(ny: int, nx: int, device=None):
 
 
 def _anchor_table(anchors, nl, device):
-    return torch.as_tensor(np.asarray(anchors, np.float32), device=device).reshape(nl, -1, 2)
+    """(nl, na, 2) float32 pixel anchors on `device`. A float32 tensor already
+    there (the served step's, built once a replica) is only reshaped; numpy or a
+    list is copied there, and on a CUDA device the host then waits for the
+    stream."""
+    return torch.as_tensor(anchors, dtype=torch.float32, device=device).reshape(nl, -1, 2)
 
 
 def decode_predictions(feats, anchors, strides):
@@ -98,7 +102,8 @@ def decode_predictions(feats, anchors, strides):
       wh = (sigmoid(t_wh) * 2)^2 * anchor_px
       conf = sigmoid(t_conf)
 
-    feats: (bs, na, ny, nx, no) per scale; anchors: (nl, na, 2) pixel anchors.
+    feats: (bs, na, ny, nx, no) per scale; anchors: (nl, na, 2) pixel anchors,
+    numpy or a float32 tensor on the features' device.
     """
     anchors = _anchor_table(anchors, len(feats), feats[0].device)
     z = []
@@ -128,6 +133,9 @@ def decode_topk_nhwc(feats_raw, anchors, strides, k_per_scale=(256, 128, 64), co
     JAX package's padded decode reduces (detect_head.py:276ff). A pad lane's
     logit -20 wins no max that passes conf_thres, so the candidates, their
     flat order and their classes are the plain layout's.
+
+    `anchors`: (nl, na, 2) pixel anchors, numpy or a float32 tensor on the
+    features' device (`_anchor_table`).
 
     Returns (boxes_xyxy (B, K, 4), scores (B, K), cls_ids (B, K)), invalid
     slots at score -1, K = sum of the per-scale k. `with_overflow=True` adds

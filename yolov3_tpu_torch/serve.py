@@ -59,9 +59,12 @@ def _host(t):
 def _paths(full_model, serving, conf_thres, iou_thres, max_det, k_per_scale):
     """(full_fn, fast_fn) of one replica: the float32 full path on
     `full_model`, the fast path on the fused bf16 `serving` model (None: no
-    fast path), each on its model's device."""
+    fast path), each on its model's device. The anchor table is copied to
+    that device once, here: a copy from the host in every batch's decode
+    would make the host wait there for the queued forward."""
     device = full_model.device
-    anchors, strides = full_model.anchors_px, full_model.spec.strides
+    anchors = torch.as_tensor(full_model.anchors_px, dtype=torch.float32, device=device)
+    strides = full_model.spec.strides
 
     @torch.inference_mode()
     def full_fn(imgs_u8):
@@ -118,9 +121,11 @@ def build_batched_infer(model, conf_thres=0.25, iou_thres=0.45, max_det=300, fas
     Spans (utils/tracing.py), a batch each: `serve/copy_in` (the images to
     the device), `serve/forward`, `serve/decode` (top-k decode, the score
     kernel), `serve/nms` (the NMS kernel), `serve/fetch` (the counts and the
-    overflow flag to the host: the host waits on the device there),
-    `serve/fallback` (the full path after an overflow) and, with fast=False,
-    `serve/full`.
+    overflow flag to the host), `serve/fallback` (the full path after an
+    overflow) and, with fast=False, `serve/full`. Nothing between copy-in
+    and fetch makes the host wait on the device: `serve/forward`, `/decode`
+    and `/nms` time the host's queueing of the batch, `serve/fetch` its wait
+    for the device.
 
     `mesh` (parallel.mesh.Mesh): data-parallel serving. Each device of the
     mesh holds a replica of the model (and of the fused serving model), a
