@@ -1,8 +1,9 @@
 """Operations of one forward of a configuration, from its layer graph.
 
 Two operations a multiply-add of every convolution (the conv layers, the
-Bottlenecks' two, SPP's two, the head's 1x1 convs), from the weight shapes
-and the output sizes; BatchNorm, activations, pools and adds are left out,
+Bottlenecks' two, C3's three and its bottlenecks' two each, SPP's and
+SPPF's two, the head's 1x1 convs), from the weight shapes and the output
+sizes; BatchNorm, activations, pools and adds are left out,
 as utils/profiling.model_flops of the program leaves them out. yolov3 at 640
 px: 155.89 GFLOP an image; yolov3-tiny: 13.17.
 """
@@ -27,23 +28,29 @@ def conv_shapes(model_cfg, imgsz):
             continue
         for r in range(ly["n"]):
             cin = ly["c1"] if r == 0 else ly["c2"]
+            c2 = ly["c2"]
             if op == "Conv":
-                k, s = (a[1] if len(a) > 1 else 1), (a[2] if len(a) > 2 else 1)
-                h = (h + 2 * (k // 2) - k) // s + 1
-                out.append((cin, ly["c2"], k, s, h, h))
+                _, k, s, pad = a
+                h = (h + 2 * pad - k) // s + 1
+                out.append((cin, c2, k, s, h, h))
             elif op == "Bottleneck":
-                c_ = int(ly["c2"] * 0.5)
-                out += [(cin, c_, 1, 1, h, h), (c_, ly["c2"], 3, 1, h, h)]
-            elif op == "SPP":
-                ks = a[1] if len(a) > 1 else (5, 9, 13)
-                out += [(cin, cin // 2, 1, 1, h, h), (cin // 2 * (len(ks) + 1), ly["c2"], 1, 1, h, h)]
+                c_ = int(c2 * 0.5)
+                out += [(cin, c_, 1, 1, h, h), (c_, c2, 3, 1, h, h)]
+            elif op == "C3":
+                c_ = int(c2 * 0.5)
+                out += [(cin, c_, 1, 1, h, h), (cin, c_, 1, 1, h, h)]
+                out += [(c_, c_, 1, 1, h, h), (c_, c_, 3, 1, h, h)] * a[1]
+                out.append((2 * c_, c2, 1, 1, h, h))
+            elif op in ("SPP", "SPPF"):
+                pools = len(a[1]) if op == "SPP" else 3
+                out += [(cin, cin // 2, 1, 1, h, h), (cin // 2 * (pools + 1), c2, 1, 1, h, h)]
             elif op == "MaxPool":
-                k, s, pd = a[0], a[1], (a[2] if len(a) > 2 else 0)
-                h = (h + 2 * pd - k) // s + 1
+                k, s, pad = a
+                h = (h + 2 * pad - k) // s + 1
             elif op == "ZeroPad":
                 h = h + a[0][2] + a[0][3]
             elif op == "Upsample":
-                h = h * int(a[0])
+                h = h * a[0]
         size[i] = h
     return out
 

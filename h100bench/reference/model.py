@@ -1,12 +1,16 @@
-"""Plain PyTorch YOLOv3 forward, read from a configuration file's `model` block.
+"""Plain PyTorch YOLOv3 and YOLOv5 forward, read from a configuration file's `model` block.
 
 The layer graph of ultralytics' yolo.py (Conv = conv + BatchNorm + SiLU,
-Bottleneck, MaxPool, ZeroPad, Upsample, Concat, SPP, Detect), written as
-functions of a {name: tensor} dict keyed as the published state dicts are
-(`model.{i}.conv.weight`, `model.{i}.{r}.cv1.bn.running_mean`,
-`model.{last}.m.{k}.bias`, ...). Nothing here imports the program under
-test: the benchmark hands both sides the same seeded tensors, and this
-module computes the function they define.
+with its padding k // 2 unless the row gives one; Bottleneck, C3, MaxPool,
+ZeroPad, Upsample, Concat, SPP, SPPF, Detect over any number of levels),
+written as functions of a {name: tensor} dict keyed as the published state
+dicts are (`model.{i}.conv.weight`, `model.{i}.{r}.cv1.bn.running_mean`,
+`model.{i}.m.{r}.cv2.conv.weight`, `model.{last}.m.{k}.bias`, ...). A block
+lists its rows under `layers`, or under `backbone` and `head` as the
+published YOLOv5 YAMLs do (`nn.Upsample [None, 2, 'nearest']`, `Concat
+[1]`). Nothing here imports the program under test: the benchmark hands
+both sides the same seeded tensors, and this module computes the function
+they define.
 
 Precision (`precision=`): "f32" runs every convolution in float32, with
 TF32 off for the duration (`strict_f32`); "bf16" casts each convolution's
@@ -34,10 +38,46 @@ def make_divisible(x, divisor=8):
     return int(math.ceil(x / divisor) * divisor)
 
 
+PUBLISHED_NAMES = {"nn.Upsample": "Upsample", "nn.MaxPool2d": "MaxPool", "nn.ZeroPad2d": "ZeroPad"}
+WIDTH_OPS = ("Conv", "Bottleneck", "C3", "SPP", "SPPF")  # the ops whose first argument is their width
+
+
+def rows(model_cfg):
+    """(from, repeats, op, arguments) of each row of a `model` block."""
+    table = model_cfg["layers"] if "layers" in model_cfg else model_cfg["backbone"] + model_cfg["head"]
+    for f, n, op, args in table:
+        yield f, n, PUBLISHED_NAMES.get(op, op), list(args)
+
+
+def canonical(op, a, n):
+    """A row's arguments with common.py's defaults filled in: Conv (c2, k, s, p),
+    Bottleneck (c2, shortcut), C3 (c2, bottlenecks, shortcut), SPP (c2, ks),
+    SPPF (c2, k), MaxPool (k, s, p), Upsample (scale, mode); `n` is the
+    row's repeats after the depth gain, which C3 takes as its bottlenecks."""
+    if op == "Conv":
+        k = a[1] if len(a) > 1 else 1
+        return (a[0], k, a[2] if len(a) > 2 else 1, a[3] if len(a) > 3 and a[3] is not None else k // 2)
+    if op == "Bottleneck":
+        return (a[0], a[1] if len(a) > 1 else True)
+    if op == "C3":
+        return (a[0], n, a[1] if len(a) > 1 else True)
+    if op == "SPP":
+        return (a[0], tuple(a[1]) if len(a) > 1 else (5, 9, 13))
+    if op == "SPPF":
+        return (a[0], a[1] if len(a) > 1 else 5)
+    if op == "MaxPool":
+        return (a[0], a[1] if len(a) > 1 else a[0], a[2] if len(a) > 2 else 0)
+    if op == "Upsample":
+        a = a[1:] if a and a[0] is None else a  # nn.Upsample(size=None, scale_factor, mode)
+        return (int(a[0]) if a else 2, a[1] if len(a) > 1 else "nearest")
+    return tuple(a)
+
+
 class Net:
     """The resolved layer graph of a `model` block: per layer its inputs,
-    repeats, op, arguments, output channels and stride; the Detect inputs,
-    anchors (pixels, (nl, na, 2)) and strides."""
+    repeats (1 for a C3, whose bottlenecks are its own), op, arguments
+    (`canonical`), output channels and stride; the Detect inputs, anchors
+    (pixels, (nl, na, 2)) and strides."""
 
     def __init__(self, model_cfg, ch=3):
         nc = model_cfg["nc"]
@@ -45,7 +85,7 @@ class Net:
         anchors = [list(map(float, a)) for a in model_cfg["anchors"]]
         self.nc, self.na, self.no = nc, len(anchors[0]) // 2, nc + 5
         chans, strides, self.layers, self.save = [ch], [1], [], set()
-        for i, (f, n, op, args) in enumerate(model_cfg["layers"]):
+        for i, (f, n, op, args) in enumerate(rows(model_cfg)):
             fs = [f] if isinstance(f, int) else list(f)
             fs = tuple(x if x >= 0 else i + x for x in fs)
             n = max(round(n * gd), 1) if n > 1 else n
@@ -55,22 +95,21 @@ class Net:
                 self.save.update(fs)
                 self.layers.append(dict(i=i, f=fs, n=1, op=op, args=(), c1=0, c2=0))
                 continue
-            args = list(args)
-            if op in ("Conv", "Bottleneck", "SPP"):
-                args[0] = make_divisible(args[0] * gw, 8)
-                c2 = args[0]
+            if op in WIDTH_OPS:
+                c2 = args[0] = make_divisible(args[0] * gw, 8)
             elif op == "Concat":
                 c2 = sum(chans[x + 1] for x in fs)
             else:
                 c2 = c1
-            if op == "Conv":
-                s *= args[2] if len(args) > 2 else 1
-            elif op == "MaxPool":
-                s *= args[1] if len(args) > 1 else 2
+            args = canonical(op, args, n)
+            if op == "C3":
+                n = 1
+            if op in ("Conv", "MaxPool"):
+                s *= args[2] if op == "Conv" else args[1]
             elif op == "Upsample":
-                s //= int(args[0])
+                s //= args[0]
             self.save.update(x for x in fs if x != i - 1)
-            self.layers.append(dict(i=i, f=fs, n=n, op=op, args=tuple(args), c1=c1, c2=c2))
+            self.layers.append(dict(i=i, f=fs, n=n, op=op, args=args, c1=c1, c2=c2))
             chans.append(c2)
             strides.append(s)
         self.chans = chans[1:]
@@ -91,8 +130,8 @@ class Net:
                 out.append((f"{prefix}.bn.{leaf}", (c2,), kind))
             out.append((f"{prefix}.bn.num_batches_tracked", (), "bn_count"))
 
-        def bottleneck(prefix, c1, c2):
-            c_ = int(c2 * 0.5)
+        def bottleneck(prefix, c1, c2, e=0.5):
+            c_ = int(c2 * e)
             conv(f"{prefix}.cv1", c1, c_, 1)
             conv(f"{prefix}.cv2", c_, c2, 3)
 
@@ -102,13 +141,19 @@ class Net:
                 p = f"model.{i}" if ly["n"] == 1 else f"model.{i}.{r}"
                 cin = c1 if r == 0 else c2
                 if op == "Conv":
-                    conv(p, cin, c2, a[1] if len(a) > 1 else 1)
+                    conv(p, cin, c2, a[1])
                 elif op == "Bottleneck":
                     bottleneck(p, cin, c2)
-                elif op == "SPP":
-                    k = a[1] if len(a) > 1 else (5, 9, 13)
+                elif op == "C3":
+                    c_ = int(c2 * 0.5)
+                    conv(f"{p}.cv1", cin, c_, 1)
+                    conv(f"{p}.cv2", cin, c_, 1)
+                    conv(f"{p}.cv3", 2 * c_, c2, 1)
+                    for b in range(a[1]):
+                        bottleneck(f"{p}.m.{b}", c_, c_, e=1.0)
+                elif op in ("SPP", "SPPF"):
                     conv(f"{p}.cv1", cin, cin // 2, 1)
-                    conv(f"{p}.cv2", cin // 2 * (len(k) + 1), c2, 1)
+                    conv(f"{p}.cv2", cin // 2 * (len(a[1]) + 1 if op == "SPP" else 4), c2, 1)
                 elif op == "Detect":
                     for k, j in enumerate(self.detect_from):
                         out.append((f"{p}.m.{k}.weight", (self.na * self.no, self.chans[j], 1, 1), "head_w"))
@@ -163,11 +208,11 @@ def conv2d(x, w, b=None, stride=1, pad=0, precision="f32"):
     return y if b is None else y + b.reshape(1, -1, 1, 1)
 
 
-def conv_bn_act(p, prefix, x, k, s, train, precision, record=None):
+def conv_bn_act(p, prefix, x, s, pad, train, precision, record=None):
     """Conv (no bias) -> BatchNorm (eps 1e-3; batch statistics, biased
     variance, in train mode; running statistics otherwise) -> SiLU. In train
     mode `record` (a dict) takes each BatchNorm's batch (mean, variance)."""
-    y = conv2d(x, p[f"{prefix}.conv.weight"], None, s, k // 2, precision)
+    y = conv2d(x, p[f"{prefix}.conv.weight"], None, s, pad, precision)
     g, b = p[f"{prefix}.bn.weight"], p[f"{prefix}.bn.bias"]
     if train:
         var, mean = torch.var_mean(y, (0, 2, 3), unbiased=False)
@@ -184,27 +229,39 @@ def run_layer(p, net, ly, x, train, precision, record=None):
     op, a = ly["op"], ly["args"]
     if op == "Concat":
         return torch.cat(x, 1)
+
+    def cba(prefix, x, k=1, s=1, pad=None):
+        return conv_bn_act(p, prefix, x, s, k // 2 if pad is None else pad, train, precision, record)
+
+    def bottleneck(prefix, x, shortcut):
+        y = cba(f"{prefix}.cv2", cba(f"{prefix}.cv1", x), 3)
+        return x + y if shortcut and x.shape[1] == y.shape[1] else y
+
     for r in range(ly["n"]):
         pre = f"model.{ly['i']}" if ly["n"] == 1 else f"model.{ly['i']}.{r}"
         if op == "Conv":
-            k = a[1] if len(a) > 1 else 1
-            x = conv_bn_act(p, pre, x, k, a[2] if len(a) > 2 else 1, train, precision, record)
+            x = cba(pre, x, a[1], a[2], a[3])
         elif op == "Bottleneck":
-            y = conv_bn_act(p, f"{pre}.cv1", x, 1, 1, train, precision, record)
-            y = conv_bn_act(p, f"{pre}.cv2", y, 3, 1, train, precision, record)
-            shortcut = a[1] if len(a) > 1 else True
-            x = x + y if shortcut and x.shape[1] == y.shape[1] else y
+            x = bottleneck(pre, x, a[1])
+        elif op == "C3":  # cv3(cat(m(cv1(x)), cv2(x)))
+            y = cba(f"{pre}.cv1", x)
+            for b in range(a[1]):
+                y = bottleneck(f"{pre}.m.{b}", y, a[2])
+            x = cba(f"{pre}.cv3", torch.cat([y, cba(f"{pre}.cv2", x)], 1))
         elif op == "SPP":
-            ks = a[1] if len(a) > 1 else (5, 9, 13)
-            x = conv_bn_act(p, f"{pre}.cv1", x, 1, 1, train, precision, record)
-            x = conv_bn_act(p, f"{pre}.cv2", torch.cat([x] + [F.max_pool2d(x, k, 1, k // 2) for k in ks], 1), 1, 1,
-                            train, precision, record)
+            x = cba(f"{pre}.cv1", x)
+            x = cba(f"{pre}.cv2", torch.cat([x] + [F.max_pool2d(x, k, 1, k // 2) for k in a[1]], 1))
+        elif op == "SPPF":  # three chained stride-1 k-pools
+            ys = [cba(f"{pre}.cv1", x)]
+            for _ in range(3):
+                ys.append(F.max_pool2d(ys[-1], a[1], 1, a[1] // 2))
+            x = cba(f"{pre}.cv2", torch.cat(ys, 1))
         elif op == "MaxPool":
-            x = F.max_pool2d(x, a[0], a[1], a[2] if len(a) > 2 else 0)
+            x = F.max_pool2d(x, a[0], a[1], a[2])
         elif op == "ZeroPad":
             x = F.pad(x, tuple(a[0]))
         elif op == "Upsample":
-            x = F.interpolate(x, scale_factor=int(a[0]), mode="nearest")
+            x = F.interpolate(x, scale_factor=a[0], mode=a[1])
         else:
             raise ValueError(f"reference: no op {op}")
     return x

@@ -1,22 +1,27 @@
-"""The plain reference agrees with the port at a narrow width on the CPU."""
+"""The plain reference agrees with the port at a narrow width on the CPU: the
+benchmark's configurations and the YOLOv5 v6 layer set (padded stem, C3, SPPF,
+nn.Upsample, a four-level head)."""
 
 import functools
 
 import pytest
 import torch
 
-from h100bench_support import drive, narrow_model, small_run
+from h100bench_support import drive, frame_size, narrow_model, small_run
 from harness import plant, program
 from harness.weights import make_weights
 from reference.model import Net, forward, strict_f32
 
+MODELS = ["yolov3", "yolov3-tiny", "yolov5s", "yolov5x6"]
 
-@pytest.mark.parametrize("name", ["yolov3", "yolov3-tiny"])
+
+@pytest.mark.parametrize("name", MODELS)
 def test_forward_matches_the_port(name):
     cfg, m = narrow_model(name)
     net = Net(m)
     p = make_weights(net, 5, "cpu")
-    frames = torch.randint(0, 256, (2, 64, 64, 3), generator=torch.Generator().manual_seed(0), dtype=torch.uint8)
+    size = frame_size(m)
+    frames = torch.randint(0, 256, (2, size, size, 3), generator=torch.Generator().manual_seed(0), dtype=torch.uint8)
     plant.settle(p, net, frames, "cpu")
     model = program.build_model(cfg, p, torch.device("cpu"), m)
     x = frames.float() / 255.0
@@ -26,7 +31,7 @@ def test_forward_matches_the_port(name):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("name", ["yolov3", "yolov3-tiny"])
+@pytest.mark.parametrize("name", MODELS)
 def test_float32_train_steps_match_the_port(monkeypatch, name):
     import yolov3_tpu_torch.train.step as step
 
@@ -35,8 +40,8 @@ def test_float32_train_steps_match_the_port(monkeypatch, name):
     monkeypatch.setattr(step, "make_train_step", functools.partial(step.make_train_step, compute_dtype=torch.float32))
     seen = []
     monkeypatch.setattr(train, "check_steps", lambda run, got, want: seen.append(train.step_gaps(got, want)))
-    run = small_run("yolov3-train-b64")
     cfg, m = narrow_model(name)
+    run = small_run("yolov3-train-b64", imgsz=frame_size(m))
     run.config, run.workload["model"] = cfg, m
     drive(run)
     gaps = seen[0]

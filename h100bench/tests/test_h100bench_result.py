@@ -85,3 +85,41 @@ def test_a_workload_file_added_to_a_copy_runs_without_editing_a_file(tmp_path):
                        timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip().splitlines()[-1] == "ran ['serve_img_s'] ['unmatched', 'class_flips', 'conf_gap']"
+
+
+def test_a_four_level_configuration_added_to_a_copy_runs_without_editing_a_file(tmp_path):
+    from h100bench_support import YOLOV5X6
+
+    shutil.copytree(REPO / "h100bench", tmp_path / "h100bench", ignore=shutil.ignore_patterns("__pycache__", ".cache"))
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    source = "https://github.com/ultralytics/yolov5/blob/master/models/hub/yolov5x6.yaml"
+    config = dict(name="yolov5x6", source=source, nc=80, imgsz=1280, params=140794780, reduced=[], model=YOLOV5X6)
+    (tmp_path / "h100bench/configs/yolov5x6.json").write_text(json.dumps(config))
+    wl = json.loads((REPO / "h100bench/workloads/yolov3-serve-b32.json").read_text())
+    # the narrow model's own limits, from CPU runs at 128 px: its bf16 serving read unmatched 0.007-0.019 and
+    # class_flips 0.118-0.151 on seeds 1-6, the fp8 control 0.50-0.67 and 0.72-0.75 on seeds 7-8; the widest
+    # conf gap (0.31-0.73 against 0.73-0.75) separates nothing at 16-24 channels and is not compared
+    wl.update(name="yolov5x6-serve-b2", config="yolov5x6", k_per_scale=[512, 256, 128, 64],
+              plant_targets={"8": 224.0, "16": 56.0, "32": 20.0, "64": 6.0},
+              check={"unmatched": 0.1, "class_flips": 0.35})
+    (tmp_path / "h100bench/workloads/yolov5x6-serve-b2.json").write_text(json.dumps(wl))
+    bench["configs"].append(dict(name="yolov5x6", source=source, file="h100bench/configs/yolov5x6.json", reduced=[],
+                                 why="a P6 configuration added as data"))
+    bench["workloads"].append(dict(name="yolov5x6-serve-b2", config="yolov5x6", traffic="batch", chips=1,
+                                   why="a four-level cell added as data"))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    code = (f"import sys; sys.path[:0] = ['h100bench', {str(REPO / 'h100bench/tests')!r}, {str(REPO)!r}]\n"
+            "from harness import core\n"
+            "from reference.model import Net\n"
+            "import h100bench_support as s\n"
+            "assert str(core.ROOT).startswith(sys.argv[1])\n"
+            "run = s.small_run('yolov5x6-serve-b2')\n"
+            "m = run.workload['model']\n"
+            "run.workload['imgsz'] = s.frame_size(m)\n"
+            "s.drive(run)\n"
+            "print('ran', Net(m).strides, run.correct, sorted(run.e2e), [n for n, _, _ in run.checks])\n")
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=tmp_path, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().splitlines()[-1] == \
+        "ran (8, 16, 32, 64) True ['serve_img_s'] ['unmatched', 'class_flips']"
