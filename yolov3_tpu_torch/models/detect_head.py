@@ -117,7 +117,7 @@ def decode_predictions(feats, anchors, strides):
 
 
 def decode_topk_nhwc(feats_raw, anchors, strides, k_per_scale=(256, 128, 64), conf_thres=0.25,
-                     with_overflow=False, score_fn=masked_scores, padded_lanes=0):
+                     with_overflow=False, score_fn=masked_scores, padded_lanes=0, overflow_per_level=False):
     """Per-scale top-k candidates from raw NHWC head outputs (B, ny, nx, na*no).
 
     The flat candidate index runs in (y, x, a) order, the memory order of the
@@ -139,7 +139,8 @@ def decode_topk_nhwc(feats_raw, anchors, strides, k_per_scale=(256, 128, 64), co
 
     Returns (boxes_xyxy (B, K, 4), scores (B, K), cls_ids (B, K)), invalid
     slots at score -1, K = sum of the per-scale k. `with_overflow=True` adds
-    a (B,) bool, True where a scale had more valid candidates than its k.
+    a (B,) bool, True where a scale had more valid candidates than its k;
+    with `overflow_per_level=True` it is (B, nl), one flag a scale.
     """
     def rows(f, na):
         bs, ny, nx, ch = f.shape
@@ -149,7 +150,7 @@ def decode_topk_nhwc(feats_raw, anchors, strides, k_per_scale=(256, 128, 64), co
         return f.reshape(bs, ny * nx, ch), ch // na, ny, nx
 
     return _decode_topk_scales(feats_raw, anchors, strides, k_per_scale, conf_thres, with_overflow, score_fn,
-                               rows, anchor_major=False)
+                               rows, anchor_major=False, overflow_per_level=overflow_per_level)
 
 
 def decode_topk_candidates(feats, anchors, strides, k_per_scale=(256, 128, 64), conf_thres=0.25,
@@ -170,14 +171,13 @@ def decode_topk_candidates(feats, anchors, strides, k_per_scale=(256, 128, 64), 
 
 
 def _decode_topk_scales(feats, anchors, strides, k_per_scale, conf_thres, with_overflow, score_fn, rows,
-                        anchor_major):
+                        anchor_major, overflow_per_level=False):
     """The top-k decode of every scale. `rows(f, na)` gives ((B, ny*nx, na*no)
     rows in (y, x, a) order, no, ny, nx); the candidates are sorted in (y, x,
     a) order, or in (a, y, x) order when `anchor_major`."""
     anchors = _anchor_table(anchors, len(feats), feats[0].device)
     na = anchors.shape[1]
-    boxes_all, scores_all, cls_all = [], [], []
-    overflow = None
+    boxes_all, scores_all, cls_all, overflow = [], [], [], []
     for i, f in enumerate(feats):
         flat, no, ny, nx = rows(f, na)
         bs, m = flat.shape[:2]
@@ -185,8 +185,7 @@ def _decode_topk_scales(feats, anchors, strides, k_per_scale, conf_thres, with_o
 
         masked, cls_arg = score_fn(flat, na, no, conf_thres)  # (bs, m*na) in (y, x, a) order
         if with_overflow:  # valid <=> score stored (score > conf >= 0)
-            ov = (masked > 0).sum(1) > k
-            overflow = ov if overflow is None else overflow | ov
+            overflow.append((masked > 0).sum(1) > k)
         if anchor_major:
             masked = masked.reshape(bs, m, na).transpose(1, 2).reshape(bs, na * m)
 
@@ -213,4 +212,7 @@ def _decode_topk_scales(feats, anchors, strides, k_per_scale, conf_thres, with_o
         cls_all.append(torch.gather(cls_arg, 1, r).float())
 
     out = (torch.cat(boxes_all, 1), torch.cat(scores_all, 1), torch.cat(cls_all, 1))
-    return out + (overflow,) if with_overflow else out
+    if not with_overflow:
+        return out
+    overflow = torch.stack(overflow, 1)
+    return out + (overflow if overflow_per_level else overflow.any(1),)

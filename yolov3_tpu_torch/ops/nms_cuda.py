@@ -61,8 +61,9 @@ def greedy_nms(boxes_off, boxes, scores, cls_ids, iou_thres=0.45, max_det=300):
     It calls the registered op `torch.ops.yolov3_tpu_torch.greedy_nms`, so a
     program that `torch.export` traces through it carries the op: a CPU
     tensor runs the plain version; a CUDA tensor launches the kernel (one of
-    `ROUTES`, chosen from K; `greedy_nms.last_route` names it); any other
-    device raises.
+    `ROUTES`, chosen from K; `greedy_nms.last_route` names it, and
+    `greedy_nms.route_launches` counts the launches by route name beside
+    `greedy_nms.launches`); any other device raises.
     """
     if scores.device.type not in ("cpu", "cuda"):
         raise ValueError(f"greedy_nms: unsupported device {scores.device}")
@@ -103,6 +104,7 @@ def _greedy_nms_cuda(boxes_off, boxes, scores, cls_ids, iou_thres, max_det):
         raise RuntimeError(f"greedy_nms kernel launch failed: cudaError {err}")
     greedy_nms.launches += 1
     greedy_nms.last_route = ROUTES[route]
+    greedy_nms.route_launches[ROUTES[route]] += 1
     return out, n
 
 
@@ -115,6 +117,7 @@ def _greedy_nms_fake(boxes_off, boxes, scores, cls_ids, iou_thres, max_det):
 
 greedy_nms.launches = 0
 greedy_nms.last_route = None
+greedy_nms.route_launches = dict.fromkeys(ROUTES.values(), 0)
 
 
 def _library():

@@ -17,9 +17,11 @@ other formats only where cv2 or PIL is installed, else 400) or an
 `application/x-npy` HWC BGR uint8 array -> JSON {detections: [[x1, y1, x2,
 y2, conf, cls], ...] rounded to 4 places, names: {...}, speed_ms}. GET
 /health -> the model's name, imgsz, names, the batcher's device calls and
-requests, and `stages`: {span name: {count, total_s, p50_ms, p95_ms}} of the
-request path's spans since the process started (p50 / p95 over each one's
-last 1024), `batcher/wait` (the oldest request's queue wait a device call),
+requests, `counters` (the fast path's `infer.fallbacks` and
+`infer.level_overflows`, the NMS kernel's `greedy_nms.launches` and
+`greedy_nms.route_launches`), and `stages`: {span name: {count, total_s,
+p50_ms, p95_ms}} of the request path's spans since the process started
+(p50 / p95 over each one's last 1024), `batcher/wait` (the oldest request's queue wait a device call),
 `batcher/assemble`, `batcher/call`, `batcher/fetch`, `batcher/scatter`,
 `pipeline/letterbox`, `pipeline/scale_back` and the `serve/` stages of
 `build_batched_infer` (utils/tracing.py). A body that does not decode gets
@@ -49,11 +51,20 @@ from yolov3_tpu_torch.models.detect_head import decode_predictions, decode_topk_
 from yolov3_tpu_torch.models.detection import cast_for_inference
 from yolov3_tpu_torch.models.loading import load_weights
 from yolov3_tpu_torch.ops.nms import batched_nms, nms_from_candidates
+from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
 from yolov3_tpu_torch.utils.general import LOGGER
 from yolov3_tpu_torch.utils.tracing import record, span, stats
 
 def _host(t):
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def topk_per_level(nl, imgsz):
+    """The fast path's top-k of each of `nl` head levels at `imgsz` px: 256,
+    128, 64 at 640 px and below, 64 for each further level, and above 640 px
+    scaled by imgsz // 640 (512, 256, 128, 64 for a P6 model at 1280 px),
+    never under 64."""
+    return tuple(max(64, (256 >> i) * max(1, imgsz // 640)) for i in range(nl))
 
 
 def _paths(full_model, serving, conf_thres, iou_thres, max_det, k_per_scale):
@@ -83,7 +94,8 @@ def _paths(full_model, serving, conf_thres, iou_thres, max_det, k_per_scale):
             feats = serving(x, raw=True)
         with span("serve/decode"):
             boxes, scores, cls_ids, overflow = decode_topk_nhwc(
-                feats, anchors, strides, k_per_scale=k_per_scale, conf_thres=conf_thres, with_overflow=True)
+                feats, anchors, strides, k_per_scale=k_per_scale, conf_thres=conf_thres, with_overflow=True,
+                overflow_per_level=True)
         with span("serve/nms"):
             dets, n = nms_from_candidates(boxes, scores, cls_ids, iou_thres=iou_thres, max_det=max_det)
         return dets, n, overflow
@@ -108,24 +120,26 @@ def build_batched_infer(model, conf_thres=0.25, iou_thres=0.45, max_det=300, fas
 
     fast=True: BN-folded bf16 forward with a raw NHWC head, the per-scale
     top-k decode (`k_per_scale`; candidate-score kernel) and greedy NMS (NMS
-    kernel). A per-image overflow flag from the decode marks dense scenes
-    whose above-conf candidates exceed the per-scale top-k; such a batch
+    kernel). Per-image, per-level overflow flags from the decode mark dense
+    scenes whose above-conf candidates exceed a level's top-k; such a batch
     re-runs through the full path instead of being silently truncated.
     `infer.fast_fn` / `infer.full_fn` are the two paths (each takes host or
-    device uint8 images), `infer.serving_model` the fused bf16 model of the
-    first; `infer.fallbacks` counts the batches that took the second.
+    device uint8 images; the fast path's third output is the (B, nl) flags),
+    `infer.serving_model` the fused bf16 model of the first;
+    `infer.fallbacks` counts the batches that took the second, and
+    `infer.level_overflows[i]` those among them that overflowed at level i.
 
     fast=False returns the full path alone: the float32 unfused forward,
     `decode_predictions` and `batched_nms` (max_nms 8192).
 
     Spans (utils/tracing.py), a batch each: `serve/copy_in` (the images to
     the device), `serve/forward`, `serve/decode` (top-k decode, the score
-    kernel), `serve/nms` (the NMS kernel), `serve/fetch` (the counts and the
-    overflow flag to the host), `serve/fallback` (the full path after an
-    overflow) and, with fast=False, `serve/full`. Nothing between copy-in
-    and fetch makes the host wait on the device: `serve/forward`, `/decode`
-    and `/nms` time the host's queueing of the batch, `serve/fetch` its wait
-    for the device.
+    kernel), `serve/nms` (the NMS kernel), `serve/fetch` (the counts and
+    the levels' overflow flags to the host), `serve/fallback` (the full path
+    after an overflow) and, with fast=False, `serve/full`. Nothing between
+    copy-in and fetch makes the host wait on the device: `serve/forward`,
+    `/decode` and `/nms` time the host's queueing of the batch,
+    `serve/fetch` its wait for the device.
 
     `mesh` (parallel.mesh.Mesh): data-parallel serving. Each device of the
     mesh holds a replica of the model (and of the fused serving model), a
@@ -154,22 +168,29 @@ def build_batched_infer(model, conf_thres=0.25, iou_thres=0.45, max_det=300, fas
     if not fast:
         return span("serve/full")(full_fn)
 
+    nl = model.spec.nl
+
     def infer(imgs_u8):
         with span("serve/copy_in"):
             imgs = torch.as_tensor(imgs_u8).to(device, non_blocking=True)
         dets, n, overflow = fast_fn(imgs)
-        with span("serve/fetch"):  # one small device->host copy: per-image counts + the overflow-any flag
-            meta = _host(torch.cat([n, overflow.any().to(torch.int32)[None]]))
-        if meta[-1]:
-            LOGGER.info("serve: top-k candidate overflow — falling back to full decode for this batch")
+        with span("serve/fetch"):  # one small device->host copy: per-image counts + each level's overflow-any flag
+            meta = _host(torch.cat([n, overflow.any(0).to(torch.int32)]))
+        levels = np.flatnonzero(meta[-nl:])
+        if len(levels):
+            LOGGER.info(f"serve: top-k candidate overflow at levels {levels.tolist()} — "
+                        "falling back to full decode for this batch")
             infer.fallbacks += 1
+            for i in levels:
+                infer.level_overflows[i] += 1
             with span("serve/fallback"):
                 return full_fn(imgs)
-        return dets, meta[:-1]
+        return dets, meta[:-nl]
 
     infer.fast_fn, infer.full_fn = fast_fn, full_fn
     infer.serving_model = serving
     infer.fallbacks = 0
+    infer.level_overflows = [0] * nl
     return infer
 
 
@@ -269,8 +290,10 @@ def build_pipeline(model, imgsz=640, conf_thres=0.25, iou_thres=0.45, max_det=30
     """Single-image predict fn: letterbox (auto=False) -> BGR to RGB ->
     MicroBatcher -> `build_batched_infer` -> boxes scaled back to the
     image's pixels. predict(im_bgr (H, W, 3) uint8) -> (n, 6) float32;
-    `predict.batcher` is the MicroBatcher. The JAX package's automatic
-    space-to-depth stem decides nothing here (the layout is plain).
+    `predict.batcher` is the MicroBatcher. The fast path's top-k of each
+    head level is `topk_per_level` of the model's levels at `imgsz`. The
+    JAX package's automatic space-to-depth stem decides nothing here (the
+    layout is plain).
     shard=True: data-parallel serving over every local card
     (parallel.mesh.create_mesh()), or over the devices of `shard` when it is
     a Mesh; the buckets start at the mesh's size. Spans (utils/tracing.py),
@@ -284,7 +307,8 @@ def build_pipeline(model, imgsz=640, conf_thres=0.25, iou_thres=0.45, max_det=30
     if shard:
         mesh = shard if isinstance(shard, Mesh) else create_mesh()
     min_bucket = mesh.size if mesh is not None else 1
-    infer = build_batched_infer(model, conf_thres, iou_thres, max_det, fast=fast, mesh=mesh)
+    infer = build_batched_infer(model, conf_thres, iou_thres, max_det, fast=fast, mesh=mesh,
+                                k_per_scale=topk_per_level(model.spec.nl, imgsz))
     batcher = MicroBatcher(infer, max_batch=max(max_batch, min_bucket), batch_wait_ms=batch_wait_ms,
                            min_bucket=min_bucket)
 
@@ -341,6 +365,10 @@ def make_server(weights, host="0.0.0.0", port=8507, imgsz=640, conf_thres=0.25, 
                     "model": model.spec.name, "imgsz": imgsz, "names": names, "status": "ok",
                     "batching": {"max_batch": b.max_batch, "device_calls": b.calls,
                                  "requests": b.requests},
+                    "counters": {"infer.fallbacks": getattr(b.infer, "fallbacks", 0),
+                                 "infer.level_overflows": list(getattr(b.infer, "level_overflows", [])),
+                                 "greedy_nms.launches": greedy_nms.launches,
+                                 "greedy_nms.route_launches": dict(greedy_nms.route_launches)},
                     "stages": stats(("batcher/", "pipeline/", "serve/")),
                 })
             else:
