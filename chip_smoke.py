@@ -14,6 +14,11 @@ Phases, each printing its result on its own line:
   3. the candidate-score kernel against its plain version on bf16 head
      outputs of yolov3@640 at batch 32 and at ragged, f16, f32 and unaligned
      shapes; its time per scale and for the three scales beside the bound;
+ 3b. the conv epilogue kernel (csrc/epilogue.cu) against its plain version at
+     yolov3's and yolov5x6's served epilogue shapes (EPILOGUE_SHAPES, two
+     with a residual): within one bf16 unit in the last place; its device
+     time beside its byte bound, the plain version's time and that of the
+     three PyTorch passes it replaced;
   4. the conv3x3 + BatchNorm-statistics kernels against the plain version at
      every stride-1 3x3 conv shape of yolov3, yolov3-spp, yolov3-tiny,
      yolov5s and yolov5s-transformer at 640 px and at small f32 and odd
@@ -24,7 +29,8 @@ Phases, each printing its result on its own line:
   5. the serving path: full-width yolov3 (seeded random weights, detections
      planted on the head bias), 64 concurrent 640x640 requests through
      MicroBatcher(max_batch=32), one dense batch that takes the overflow
-     fallback, launch counts of both kernels over that run, a profile of
+     fallback, launch counts of K1, K2 and the conv epilogue (once a
+     folded Conv a fast path) over that run, a profile of
      the served batch by kernel group, and the fast path's detections
      against the plain score and NMS functions;
   6. the HTTP front end on that model, saved as a port checkpoint:
@@ -653,9 +659,80 @@ def plant_under_topk(model, frames, k=(256, 128, 64), targets=(112.0, 28.0, 10.0
     raise RuntimeError(f"chip_smoke: no targets keep every frame under half the top-k {k}: {targets}")
 
 
-KERNEL_GROUPS = (  # kernel-name substrings -> the layer it belongs to
+# (label, B, C, H, W, act, residual): yolov3@640 batch 32's largest epilogue (its first stride-2 conv), a darknet
+# residual block at 160x160 and one at 20x20; yolov5x6@1280 batch 16's largest (its 6x6 stem) and a C3 bottleneck's
+EPILOGUE_SHAPES = (("yolov3 320x320x64", 32, 64, 320, 320, "silu", False),
+                   ("yolov3 160x160x128 residual", 32, 128, 160, 160, "silu", True),
+                   ("yolov3 20x20x1024 residual", 32, 1024, 20, 20, "silu", True),
+                   ("yolov5x6 640x640x80", 16, 80, 640, 640, "silu", False),
+                   ("yolov5x6 320x320x160 residual", 16, 160, 320, 320, "silu", True))
+EPILOGUE_KERNEL = "conv_epilogue"  # in the name of csrc/epilogue.cu's kernel
+
+
+def bf16_ulps(a, b):
+    """The largest distance between two bf16 / f16 tensors in units in the last place (-0 and +0 equal)."""
+    def ordered(t):
+        bits = t.view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def phase_epilogue(shapes=EPILOGUE_SHAPES, device="cuda"):
+    """The conv epilogue kernel (csrc/epilogue.cu) against its plain version
+    at the served shapes of EPILOGUE_SHAPES (bf16, channels_last): within one
+    unit in the last place, and the share of elements that differ at all;
+    then each shape's device time beside its byte bound
+    ((2 + residual) * numel * 2 + 2 C bytes at 3.35 TB/s), the plain
+    version's time and that of the three PyTorch passes it replaced (cuDNN's
+    in-place bias add, SiLU, the residual add), both by CUDA events."""
+    import torch.nn.functional as F
+
+    from yolov3_tpu_torch.ops.epilogue_cuda import conv_epilogue, conv_epilogue_plain
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = {}
+    for label, B, C, H, W, act, residual in shapes:
+        y0 = (torch.randn((B, H, W, C), generator=gen, device=device) * 3).to(torch.bfloat16).permute(0, 3, 1, 2)
+        bias = torch.randn((C,), generator=gen, device=device).to(torch.bfloat16)
+        r = torch.randn((B, H, W, C), generator=gen, device=device).to(torch.bfloat16).permute(0, 3, 1, 2) \
+            if residual else None
+        want = conv_epilogue_plain(y0, bias, act, r)
+        y = y0.clone(memory_format=torch.channels_last)
+        t0 = time.perf_counter()
+        conv_epilogue(y, bias, act, r)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        ulps = bf16_ulps(y, want)
+        differ = float((y != want).float().mean())
+        check(ulps <= 1, f"conv_epilogue {label}: {ulps} ulps from the plain version")
+        del want
+        nbytes = (2 + bool(residual)) * y.numel() * 2 + 2 * C
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = device_ms(lambda: conv_epilogue(y, bias, act, r), EPILOGUE_KERNEL)
+        plain_ms = cuda_ms(lambda: conv_epilogue_plain(y0, bias, act, r), iters=5)
+        b4 = bias.view(1, -1, 1, 1)
+
+        def passes():
+            out = F.silu(y.add_(b4))
+            return out if r is None else r + out
+
+        passes_ms = cuda_ms(passes, iters=10)
+        rows[label] = dict(ulps=ulps, differ=differ, ms=ms, bound_ms=bound_ms, share=bound_ms / ms,
+                           plain_ms=plain_ms, passes_ms=passes_ms, gb=nbytes / 1e9)
+        print(f"conv_epilogue {label} {(B, C, H, W)} {act}{' + residual' if residual else ''}: first call "
+              f"{first_s:.2f} s; within {ulps} ulp of the plain version ({differ:.2e} of elements differ); device "
+              f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB), {bound_ms / ms:.1%} of the bound "
+              f"= {nbytes / ms / 1e6:.0f} GB/s; plain {plain_ms:.4f} ms; the three PyTorch passes "
+              f"{passes_ms:.4f} ms", flush=True)
+        del y, y0, r
+    return rows
+
+
+KERNEL_GROUPS = (  # kernel-name substrings -> the layer it belongs to, first match wins
     ("K1 greedy_nms", ("greedy_nms",)),
     ("K2 masked_scores", (SCORE_KERNEL,)),
+    ("conv epilogue", (EPILOGUE_KERNEL,)),
     ("convolutions (cuDNN, cuBLAS)", ("conv", "gemm", "xmma", "cutlass", "sm90", "cudnn", "nhwc", "nvjet")),
     ("sort (top-k)", ("sort", "radix")),
 )
@@ -702,9 +779,12 @@ def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32, label="m
     MicroBatcher(max_batch), then a dense batch that takes the full-decode
     fallback. Launches over that run: K2 nl times and K1 once a device call,
     and K1 once more for the fallback (K = min(8192, every anchor row)).
-    Then ms per batch, its profile and `check_fast_path`. `label` starts each
-    line printed."""
+    The folded model's convs: the epilogue kernel once a `Conv` a fast path
+    (a device call or the dense batch's). Then ms per batch, its profile and
+    `check_fast_path`. `label` starts each line printed."""
+    from yolov3_tpu_torch.nn.modules import Conv
     from yolov3_tpu_torch.ops import nms as nms_module
+    from yolov3_tpu_torch.ops.epilogue_cuda import conv_epilogue
     from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
     from yolov3_tpu_torch.ops.score_cuda import masked_scores
     from yolov3_tpu_torch.serve import MicroBatcher, build_batched_infer
@@ -730,6 +810,7 @@ def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32, label="m
     # --- the main path: every launch from here to the count read is the path's own
     greedy_nms.launches = 0
     masked_scores.launches = 0
+    conv_epilogue.launches = 0
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=n_requests) as pool:
         results = [f.result() for f in [pool.submit(batcher.submit, im) for im in frames]]
@@ -755,7 +836,8 @@ def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32, label="m
     finally:
         nms_module.greedy_nms = real_nms
         plant_detections(model, base, gains, deltas)
-    launches = {"greedy_nms": greedy_nms.launches, "masked_scores": masked_scores.launches}
+    launches = {"greedy_nms": greedy_nms.launches, "masked_scores": masked_scores.launches,
+                "conv_epilogue": conv_epilogue.launches}
     # --- end of the main path
 
     print(f"{label}: {n_requests} requests in {serve_s:.3f} s = {n_requests / serve_s:.1f} img/s "
@@ -770,11 +852,14 @@ def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32, label="m
     check(max(counts) > 0, f"{label}: no request got a detection")
     check(served_fallbacks == 0, f"{label}: a served batch took the full-decode fallback")
     check(dense_infer.fallbacks == 1, f"{label}: the dense batch did not take the full-decode fallback")
-    # every device call and the dense batch's fast path: K2 once a level, K1 once; the fallback: K1 once more
+    # every device call and the dense batch's fast path: K2 once a level, K1 once, the epilogue once a Conv; the
+    # fallback: K1 once more
     calls = batcher.calls + 1
-    want = {"greedy_nms": calls + 1, "masked_scores": nl * calls}
+    convs = sum(isinstance(m, Conv) for m in infer.serving_model.modules())
+    want = {"greedy_nms": calls + 1, "masked_scores": nl * calls, "conv_epilogue": convs * calls}
     check(launches == want, f"{label}: launches {launches} in {batcher.calls} device calls and a fallback batch, "
-                            f"expected {want} (K2 {nl} and K1 1 a call, K1 1 more on the fallback)")
+                            f"expected {want} (K2 {nl}, K1 1 and the epilogue {convs} a call, K1 1 more on the "
+                            "fallback)")
     fallback_k = min(SERVE_MAX_NMS, na * sum((imgsz // s) ** 2 for s in model.spec.strides))
     check(seen_k == [fallback_k], f"{label}: fallback NMS ran at K={seen_k}, expected [{fallback_k}]")
     print(f"{label} requests: n per image mean {np.mean(counts):.1f}, max {max(counts)}; dense batch fell back, "
@@ -3763,6 +3848,7 @@ def main(argv=()):
     rng = np.random.default_rng(0)
     nms_rows = phase_nms(rng)
     score = phase_score(rng)
+    epilogue = phase_epilogue()
     from yolov3_tpu_torch.models.detection import DetectionModel
 
     model = DetectionModel.from_config("yolov3", seed=0)  # full width, nc=80, on the card
@@ -3842,9 +3928,15 @@ def main(argv=()):
              learn_launches=learn_launches["conv3x3_bn_stats"], learn_launches_per_step=learn["k3_per_step"],
              layout_s2d_launches_per_step=layout["s2d_train"]["k3_per_step"],
              family_launches_per_step={k: family_launches[k]["k3_per_step"] for k in FAMILY}),
+        dict(name="conv_epilogue", route="cuda", source="yolov3_tpu_torch/csrc/epilogue.cu", replaces=None,
+             launches=launches["conv_epilogue"], max_ulps=max(r["ulps"] for r in epilogue.values()),
+             **{k: epilogue[EPILOGUE_SHAPES[0][0]][k] for k in ("ms", "plain_ms", "bound_ms")}, bound_by="bytes",
+             library_ms=epilogue[EPILOGUE_SHAPES[0][0]]["passes_ms"],
+             family_serve_launches={k: family_launches[k]["serve"]["conv_epilogue"] for k in FAMILY}),
     ]
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"nms_shapes": nms_rows, "conv_bn_shapes": conv_rows, "main_path": e2e, "http": http,
+    print(json.dumps({"nms_shapes": nms_rows, "conv_bn_shapes": conv_rows, "epilogue_shapes": epilogue,
+                      "main_path": e2e, "http": http,
                       "fast_false": fast_false, "val": val, "merge": merge, "save_hybrid": hybrid, "train": train,
                       "remat": remat, "trainer": trainer, "jpeg": jpeg, "detect": detect, "zoo": zoo,
                       "export": exported, "parallel": parallel, "learn": learn, "host_nms": host_nms,

@@ -28,12 +28,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from yolov3_tpu_torch.nn.activations import get_activation
+from yolov3_tpu_torch.nn.activations import get_activation, identity, leaky_relu, silu
 from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
+from yolov3_tpu_torch.ops.epilogue_cuda import conv_epilogue, in_vector_layout
 from yolov3_tpu_torch.parallel.mesh import all_reduce_sum, statistics_synchronized, world_size
 
 BN_EPS = 1e-3  # the JAX package's BatchNorm epsilon
 BN_MOMENTUM = 0.03  # torch convention of flax's decay 0.97
+EPILOGUE_ACTS = {silu: "silu", identity: "identity", leaky_relu: "leaky_relu"}  # what conv_epilogue computes
 
 _RECOMPUTE = threading.local()
 
@@ -140,7 +142,18 @@ class Conv(nn.Module):
     mode and the fused form never take that route. Nested Convs (C3's
     bottlenecks, a DWConv whose groups come to 1) route the same way.
     `bn_stats_fn` is the function called; a caller comparing the kernel with
-    its plain version sets it (DetectionModel.set_bn_stats_fn)."""
+    its plain version sets it (DetectionModel.set_bn_stats_fn).
+
+    The fused form's epilogue on the card: a folded conv in eval mode on a
+    CUDA bf16 input, with no autograd graph to record, C_out a multiple of
+    8 and an activation of `EPILOGUE_ACTS` (SiLU, identity, leaky ReLU 0.1)
+    runs the conv without its bias, then `conv_epilogue`
+    (ops/epilogue_cuda.py): bias, activation and `residual` in one pass
+    over the conv's output, in place. Every other case (CPU tensors,
+    float32 and float16, train mode, a recorded graph, other activations)
+    runs the conv with its bias, the activation and the residual add as
+    PyTorch ops. `residual` (a Bottleneck's shortcut) is added after the
+    activation either way."""
 
     def __init__(self, c1, c2, k=1, s=1, p=None, g=1, d=1, act=True, fused=False):
         super().__init__()
@@ -151,11 +164,32 @@ class Conv(nn.Module):
                             and self.conv.padding == (1, 1))
         self.bn_stats_fn = conv3x3_bn_stats
 
-    def forward(self, x):
+    def forward(self, x, residual=None):
         if self.stats_route and self.training:
-            return self.act(self._conv_bn_train(x))
-        x = self.conv(x)
-        return self.act(x if self.bn is None else self.bn(x))
+            out = self.act(self._conv_bn_train(x))
+        elif (act := self._epilogue_act(x, residual)) is not None:
+            c = self.conv
+            y = F.conv2d(x, c.weight, None, c.stride, c.padding, c.dilation, c.groups)
+            if residual is not None:
+                residual = in_vector_layout(residual)
+            return conv_epilogue(in_vector_layout(y), c.bias, act, residual)
+        else:
+            y = self.conv(x)
+            out = self.act(y if self.bn is None else self.bn(y))
+        return out if residual is None else residual + out
+
+    def _epilogue_act(self, x, residual):
+        """The name of the activation where `conv_epilogue` takes this call's epilogue, else None."""
+        act = EPILOGUE_ACTS.get(self.act)
+        w, b = self.conv.weight, self.conv.bias
+        if (act is None or self.bn is not None or b is None or self.training or not x.is_cuda
+                or x.dtype != torch.bfloat16 or w.dtype != x.dtype or b.dtype != x.dtype or w.shape[0] % 8):
+            return None
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, b, residual)):
+            return None
+        if residual is not None and not (residual.is_cuda and residual.dtype == x.dtype):
+            return None
+        return act
 
     def _conv_bn_train(self, x):
         bn = self.bn
@@ -221,8 +255,7 @@ class Bottleneck(nn.Module):
         self.add = shortcut and c1 == c2
 
     def forward(self, x):
-        y = self.cv2(self.cv1(x))
-        return x + y if self.add else y
+        return self.cv2(self.cv1(x), residual=x if self.add else None)
 
 
 class BottleneckCSP(nn.Module):
@@ -276,8 +309,7 @@ class CrossConv(nn.Module):
         self.add = shortcut and c1 == c2
 
     def forward(self, x):
-        y = self.cv2(self.cv1(x))
-        return x + y if self.add else y
+        return self.cv2(self.cv1(x), residual=x if self.add else None)
 
 
 class C3x(C3):

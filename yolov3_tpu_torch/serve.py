@@ -19,8 +19,10 @@ y2, conf, cls], ...] rounded to 4 places, names: {...}, speed_ms}. GET
 /health -> the model's name, imgsz, names, the batcher's device calls and
 requests, `counters` (the fast path's `infer.fallbacks` and
 `infer.level_overflows`, the NMS kernel's `greedy_nms.launches` and
-`greedy_nms.route_launches`), and `stages`: {span name: {count, total_s,
-p50_ms, p95_ms}} of the request path's spans since the process started
+`greedy_nms.route_launches`, the conv epilogue kernel's
+`conv_epilogue.launches` and `conv_epilogue.route_launches`), and
+`stages`: {span name: {count, total_s, p50_ms, p95_ms}} of the request
+path's spans since the process started
 (p50 / p95 over each one's last 1024), `batcher/wait` (the oldest request's queue wait a device call),
 `batcher/assemble`, `batcher/call`, `batcher/fetch`, `batcher/scatter`,
 `pipeline/letterbox`, `pipeline/scale_back` and the `serve/` stages of
@@ -50,6 +52,7 @@ import torch
 from yolov3_tpu_torch.models.detect_head import decode_predictions, decode_topk_nhwc
 from yolov3_tpu_torch.models.detection import cast_for_inference
 from yolov3_tpu_torch.models.loading import load_weights
+from yolov3_tpu_torch.ops.epilogue_cuda import conv_epilogue
 from yolov3_tpu_torch.ops.nms import batched_nms, nms_from_candidates
 from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
 from yolov3_tpu_torch.utils.general import LOGGER
@@ -368,7 +371,9 @@ def make_server(weights, host="0.0.0.0", port=8507, imgsz=640, conf_thres=0.25, 
                     "counters": {"infer.fallbacks": getattr(b.infer, "fallbacks", 0),
                                  "infer.level_overflows": list(getattr(b.infer, "level_overflows", [])),
                                  "greedy_nms.launches": greedy_nms.launches,
-                                 "greedy_nms.route_launches": dict(greedy_nms.route_launches)},
+                                 "greedy_nms.route_launches": dict(greedy_nms.route_launches),
+                                 "conv_epilogue.launches": conv_epilogue.launches,
+                                 "conv_epilogue.route_launches": dict(conv_epilogue.route_launches)},
                     "stages": stats(("batcher/", "pipeline/", "serve/")),
                 })
             else:
