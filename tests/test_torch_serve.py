@@ -31,7 +31,7 @@ from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, 
 from torch_narrow import narrow_cfg
 from yolov3_tpu_torch.models.convert import load_jax_variables
 from yolov3_tpu_torch.models.detect_head import decode_topk_nhwc
-from yolov3_tpu_torch.models.detection import DetectionModel
+from yolov3_tpu_torch.models.detection import DetectionModel, optimize_for_inference
 from yolov3_tpu_torch.models.spec import parse_spec
 from yolov3_tpu_torch.ops.nms import nms_from_candidates
 from yolov3_tpu_torch.serve import MicroBatcher, build_batched_infer
@@ -181,7 +181,8 @@ def test_batched_infer_and_microbatcher(family, monkeypatch):
     import yolov3_tpu_torch.serve as port_serve
 
     with monkeypatch.context() as m:
-        m.setattr(port_serve, "cast_for_inference", lambda model: model)
+        m.setattr(port_serve, "optimize_for_inference",
+                  lambda model, bf16=None: optimize_for_inference(model, bf16=False))
         f32_infer = build_batched_infer(port_model(variables, cfg))
     f32_dets, f32_n = f32_infer(frames)
     assert f32_infer.serving_model.dtype == torch.float32 and f32_infer.fallbacks == 0

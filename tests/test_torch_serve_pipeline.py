@@ -30,6 +30,7 @@ from yolov3_tpu.serve import build_pipeline as jax_build_pipeline
 from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.data import image_ops
 from yolov3_tpu_torch.data.augment import letterbox
+from yolov3_tpu_torch.models.detection import optimize_for_inference
 from yolov3_tpu_torch.serve import RemoteModel, build_batched_infer, build_pipeline, make_server
 from yolov3_tpu_torch.utils.checkpoint import save_checkpoint
 
@@ -132,7 +133,8 @@ def test_pipeline_matches_jax(served, fast, monkeypatch):
     import yolov3_tpu_torch.serve as port_serve
 
     monkeypatch.setattr(jax_detection, "cast_variables_for_inference", lambda v: v)
-    monkeypatch.setattr(port_serve, "cast_for_inference", lambda m: m)
+    monkeypatch.setattr(port_serve, "optimize_for_inference",
+                        lambda m, bf16=None: optimize_for_inference(m, bf16=False))
     run_pipelines(served, fast)
 
 

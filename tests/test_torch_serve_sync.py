@@ -1,18 +1,25 @@
-"""The served step's anchor table, built once per replica on its device.
+"""The model's anchor table: float32, on the model's device, built once.
 
-`serve.build_batched_infer` copies each replica's anchor table to that
-replica's device when the path is built, so nothing in the fast path between
-the copy-in and the fetch makes the host wait on the device (a copy from the
-host in every batch's decode did: it ends in a stream synchronisation).
+`DetectionModel.anchor_table()` is the one owner of the (nl, na, 2) pixel
+anchors every decode of the port reads: the served step (one table a
+distinct replica model, read when the path is built), the validator's
+forward, `predict`, `predict_augmented` and `bf16_deltas`. A copy from the
+host in every batch's decode would make the host wait there for the queued
+forward (it ends in a stream synchronisation).
 
 On the CPU: each decode gives the same bits with the table as a tensor as
 with the numpy `anchors_px` (the plain and padded NHWC layouts, the 5-D
-head, `decode_predictions`), `_anchor_table` only reshapes such a tensor,
-and `infer` hands the decode a tensor on every call, the full path of a
-fallback batch included, one table a replica. On a card (skipped without
-one): the fast path of yolov3 and yolov3-tiny runs under
-`torch.cuda.set_sync_debug_mode("error")`, and its decode gives the same
-bits with either table.
+head, `decode_predictions`), `_anchor_table` only reshapes such a tensor;
+the table across every way a model is built (from a config, fused, the
+inference form, the benchmark's meta build, a mesh replica, new anchors),
+never part of the state dict and usable by a grad-recording decode when
+first built under `inference_mode`; `infer` and the other entry points hand
+the decode the same tensor on every call, the full path of a fallback batch
+included; and `build_batched_infer` keeps a fused float32 model float32. On
+a card (skipped without one): the fast path of yolov3 and yolov3-tiny, and
+the validator's forward and decode, run under
+`torch.cuda.set_sync_debug_mode("error")`, and the fast path's decode gives
+the same bits with either table.
 
 The file imports no JAX. On a card, from the repository's root
 (`--noconftest` keeps tests/conftest.py, which imports JAX, out):
@@ -30,9 +37,12 @@ from torch_narrow import narrow_cfg
 from yolov3_tpu_torch.models import detect_head
 from yolov3_tpu_torch.models.detect_head import (PAD_BIAS, decode_predictions, decode_topk_candidates,
                                                  decode_topk_nhwc)
-from yolov3_tpu_torch.models.detection import DetectionModel
+from yolov3_tpu_torch.eval.validator import make_forward
+from yolov3_tpu_torch.models.detection import DetectionModel, optimize_for_inference, predict_augmented
 from yolov3_tpu_torch.parallel.mesh import Mesh
 from yolov3_tpu_torch.serve import build_batched_infer
+from yolov3_tpu_torch.train.loop import _with_new_anchors
+from yolov3_tpu_torch.utils.checks import bf16_deltas
 
 CONF = 0.25
 NC, NA = 3, 3
@@ -91,9 +101,8 @@ def test_anchor_table_reshapes_a_device_table_and_converts_the_rest():
         assert torch.equal(c, t)
 
 
-@pytest.mark.parametrize("sharded", [False, True], ids=["one", "mesh2"])
-@pytest.mark.parametrize("name", ["yolov3-tiny", "yolov3"])
-def test_infer_hands_the_decode_a_device_table(name, sharded, monkeypatch):
+def spy_tables(monkeypatch):
+    """The anchors each decode of the port is handed, in order."""
     seen = []
     real = detect_head._anchor_table
 
@@ -102,6 +111,13 @@ def test_infer_hands_the_decode_a_device_table(name, sharded, monkeypatch):
         return real(anchors, nl, device)
 
     monkeypatch.setattr(detect_head, "_anchor_table", spy)
+    return seen
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["one", "mesh2"])
+@pytest.mark.parametrize("name", ["yolov3-tiny", "yolov3"])
+def test_infer_hands_the_decode_a_device_table(name, sharded, monkeypatch):
+    seen = spy_tables(monkeypatch)
     model = DetectionModel.from_config(narrow_cfg(name), seed=0, device="cpu")
     mesh = Mesh((torch.device("cpu"),) * 2) if sharded else None
     infer = build_batched_infer(model, CONF, k_per_scale=(32, 16, 8), mesh=mesh)
@@ -123,9 +139,106 @@ def test_infer_hands_the_decode_a_device_table(name, sharded, monkeypatch):
 
     assert all(isinstance(a, torch.Tensor) and a.dtype == torch.float32 and a.device == model.device
                for a in seen)
+    models = {id(m) for m in (mesh.replicas(model) if sharded else [model])}
     tables = {a.data_ptr() for a in seen}
-    assert len(tables) == replicas  # built once a replica, at build time
+    assert len(tables) == len(models) == 1  # one table a distinct replica model: two CPU shards share the model
+    assert seen[0] is model.anchor_table()
     np.testing.assert_array_equal(seen[0].numpy(), model.anchors_px)
+
+
+def meta_build(model):
+    """h100bench/harness/program.py's build of the program's model: on `meta`, then `to_empty` and a strict
+    `load_state_dict` of the weights."""
+    with torch.device("meta"):
+        m = DetectionModel(model.spec)
+    m.to_empty(device=model.device)
+    m.load_state_dict(model.state_dict(), strict=True)
+    return m.to(memory_format=torch.channels_last).eval()
+
+
+ROUTES = {
+    "from_config": lambda m: m,
+    "fuse": lambda m: m.fuse(),
+    "optimize_for_inference": lambda m: optimize_for_inference(m, bf16=True),
+    "meta_to_empty": meta_build,
+    "mesh_replica": lambda m: Mesh((torch.device("cpu"), torch.device("cpu", 0))).replicas(m)[1],
+    "new_anchors": lambda m: _with_new_anchors(m, m.anchors_px * 1.5),
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_anchor_table_across_build_routes(route):
+    """Whichever way a model is built (its source's table built first, so a copy carries it), its table is
+    the float32 `anchors_px` on its device, one tensor, and no part of its state dict."""
+    src = DetectionModel.from_config(narrow_cfg("yolov3"), seed=0, device="cpu")
+    src.anchor_table()
+    model = ROUTES[route](src)
+    if route == "mesh_replica":
+        assert model is not src
+    table = model.anchor_table()
+    assert table.dtype == torch.float32 and table.device == model.device and table.shape == (3, NA, 2)
+    np.testing.assert_array_equal(table.numpy(), model.anchors_px)  # 373 kept: not rounded with a bf16 model
+    assert model.anchor_table() is table
+    assert all(v.data_ptr() != table.data_ptr() for v in model.state_dict().values())
+    assert all(b is not table for b in model.buffers())
+    if route == "new_anchors":
+        np.testing.assert_array_equal(table.numpy(), ANCHORS_PX * 1.5)
+
+
+def test_anchor_table_first_built_under_inference_mode_serves_a_grad_decode():
+    model = DetectionModel.from_config(narrow_cfg("yolov3-tiny"), seed=0, device="cpu")
+    with torch.inference_mode():
+        first = model.anchor_table()
+    assert not first.is_inference()
+    x = torch.rand((1, 64, 64, 3), generator=torch.Generator().manual_seed(0))
+    decode_predictions(model(x), model.anchor_table(), model.spec.strides).sum().backward()
+    assert model.anchor_table() is first and model.model[-1].m[0].weight.grad is not None
+
+
+@pytest.mark.parametrize("entry", ["validator", "validator_half", "predict", "predict_augmented", "bf16_deltas"])
+def test_entry_points_hand_the_decode_the_models_table(entry, monkeypatch):
+    """Each entry point hands every decode of two calls one float32 tensor on the device: nothing is built
+    or copied per call. The validator's half path reads its bf16 model's own table."""
+    seen = spy_tables(monkeypatch)
+    model = DetectionModel.from_config(narrow_cfg("yolov3"), seed=0, device="cpu")
+    imgs = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8))
+    x = imgs.float() / 255.0
+    if entry.startswith("validator"):
+        forward = make_forward(model, half=entry == "validator_half", decode_only=True)
+        call = lambda: forward(imgs)
+    else:
+        call = {"predict": lambda: model.predict(x), "predict_augmented": lambda: predict_augmented(model, x),
+                "bf16_deltas": lambda: bf16_deltas(model, imgsz=64)}[entry]
+    with torch.no_grad():
+        call()
+        call()
+    per_call = {"validator": 1, "validator_half": 1, "predict": 1, "predict_augmented": 3, "bf16_deltas": 2}[entry]
+    assert len(seen) == 2 * per_call
+    assert all(isinstance(a, torch.Tensor) and a.dtype == torch.float32 and a.device == model.device
+               for a in seen)
+    assert len({id(a) for a in seen}) == 1
+    np.testing.assert_array_equal(seen[0].numpy(), model.anchors_px)
+    if entry != "validator_half":
+        assert seen[0] is model.anchor_table()
+
+
+def test_batched_infer_keeps_a_fused_float32_model():
+    """A fused float32 model (a fused checkpoint loads as one) stays float32: the served step's bf16 model is
+    a copy, and the full path is the float32 forward, as an unfused copy's."""
+    unfused = DetectionModel.from_config(narrow_cfg("yolov3-tiny"), seed=0, device="cpu")
+    with torch.no_grad():  # candidates at every level
+        for conv in unfused.model[-1].m:
+            conv.bias.view(NA, -1)[:, 4:] += 8.0
+    fused = unfused.fuse()
+    infer = build_batched_infer(fused, CONF, k_per_scale=(32, 16, 8))
+    assert fused.dtype == torch.float32 and infer.serving_model is not fused
+    assert infer.serving_model.dtype == torch.bfloat16
+    frames = np.random.default_rng(0).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    dets, n = infer.full_fn(frames)
+    want, want_n = build_batched_infer(unfused, CONF, fast=False)(frames)
+    np.testing.assert_array_equal(n.numpy(), want_n.numpy())
+    assert n.min() > 0
+    np.testing.assert_allclose(dets.numpy(), want.numpy(), rtol=1e-5, atol=1e-4)  # the fold's rounding
 
 
 @pytest.fixture
@@ -165,3 +278,22 @@ def test_fast_path_makes_the_host_wait_nowhere(card, name):
         from_host = decode_topk_nhwc(feats, model.anchors_px, model.spec.strides, with_overflow=True)
     for g, w in zip(on_card, from_host):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", ["yolov3-tiny", "yolov3"])
+def test_val_forward_makes_the_host_wait_nowhere(card, name):
+    """The validator's float32 forward and decode (`make_forward(decode_only=True)`) on a batch of uint8
+    images already on the card raise under sync debug mode "error" if an op synchronises with the host (a
+    copy of the numpy anchors in the decode did)."""
+    model = DetectionModel.from_config(name, seed=0, device=card)
+    forward = make_forward(model, decode_only=True)
+    imgs = torch.randint(0, 256, (4, 320, 320, 3), dtype=torch.uint8, generator=torch.Generator().manual_seed(0))
+    imgs = imgs.to(card)
+    want = forward(imgs)  # cuDNN's plans and the table, outside the checked call
+    torch.cuda.synchronize(card)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = forward(imgs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)

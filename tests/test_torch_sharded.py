@@ -9,8 +9,10 @@ tests/test_multichip.py:98,160), and against the port's unsharded calls.
    unsharded call on those rows, in their bits; the NMS kernel's wrapper
    called once a shard;
  - batched_nms and nms_from_candidates with spmd_mesh against the JAX
-   functions with the kernel shard_mapped in interpret mode; a batch the
-   mesh does not divide runs unsharded;
+   functions with the kernel shard_mapped in interpret mode;
+ - a batch the mesh does not divide (3 rows over 2 devices) runs whole on
+   the first device in serving, the validator's forward and both NMS entry
+   points (`Mesh.apply`), as the unsharded call;
  - validator.run(sharded=) over a 4-device mesh on a 10-image set in
    batches of 4, 4 and 2 (the tail batch unsharded), with the loss.
 """
@@ -36,6 +38,7 @@ from yolov3_tpu.serve import build_batched_infer as jax_build_batched_infer
 from yolov3_tpu.train.loss import LossConfig as JaxLossConfig
 from torch_cores import share_cores  # noqa: F401 — autouse: torch's threads, a worker's share
 from yolov3_tpu_torch.eval import validator
+from yolov3_tpu_torch.models.detection import optimize_for_inference
 from yolov3_tpu_torch.ops import nms as port_nms
 from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
 from yolov3_tpu_torch.parallel.mesh import create_mesh
@@ -67,7 +70,8 @@ def test_sharded_infer_matches_jax(served, fast, monkeypatch):  # noqa: F811
     import yolov3_tpu_torch.serve as port_serve
 
     monkeypatch.setattr(jax_detection, "cast_variables_for_inference", lambda v: v)
-    monkeypatch.setattr(port_serve, "cast_for_inference", lambda m: m)
+    monkeypatch.setattr(port_serve, "optimize_for_inference",
+                        lambda m, bf16=None: optimize_for_inference(m, bf16=False))
     jax_model, model, frames, _ = served
     imgs = frames_batch(frames)
     calls = []
@@ -135,12 +139,16 @@ def test_batched_nms_spmd_mesh_matches_jax(multi_label, merge):
     np.testing.assert_array_equal(odd.numpy(), plain[:3].numpy())
 
 
-def test_nms_from_candidates_spmd_mesh_matches_jax():
-    rng = np.random.default_rng(4)
-    boxes = np.sort(rng.uniform(0, 200, (4, 96, 2, 2)), axis=2).transpose(0, 1, 3, 2).reshape(4, 96, 4)
+def random_candidates(rng, bs, k=96):
+    boxes = np.sort(rng.uniform(0, 200, (bs, k, 2, 2)), axis=2).transpose(0, 1, 3, 2).reshape(bs, k, 4)
     boxes = boxes[..., [0, 2, 1, 3]].astype(np.float32)  # x1 y1 x2 y2 with x1 < x2, y1 < y2
-    scores = np.where(rng.uniform(size=(4, 96)) < 0.8, rng.uniform(0.3, 1.0, (4, 96)), -1.0).astype(np.float32)
-    cls = rng.integers(0, 3, (4, 96)).astype(np.float32)
+    scores = np.where(rng.uniform(size=(bs, k)) < 0.8, rng.uniform(0.3, 1.0, (bs, k)), -1.0).astype(np.float32)
+    cls = rng.integers(0, 3, (bs, k)).astype(np.float32)
+    return boxes, scores, cls
+
+
+def test_nms_from_candidates_spmd_mesh_matches_jax():
+    boxes, scores, cls = random_candidates(np.random.default_rng(4), 4)
     got, got_n = port_nms.nms_from_candidates(torch.from_numpy(boxes), torch.from_numpy(scores),
                                               torch.from_numpy(cls), 0.45, 40,
                                               spmd_mesh=create_mesh(["cpu", "cpu"]))
@@ -149,6 +157,51 @@ def test_nms_from_candidates_spmd_mesh_matches_jax():
         use_pallas="interpret", spmd_mesh=jax_create_mesh(jax.devices()[:2])))
     np.testing.assert_array_equal(got_n.numpy(), want_n)
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("entry", ["serve", "val", "batched_nms", "nms_from_candidates"])
+def test_undivided_batch_runs_whole_on_the_first_device(served, entry, monkeypatch):  # noqa: F811
+    """A batch of 3 on a mesh of 2 CPU devices: one call of the NMS kernel's wrapper on all 3 rows, and the
+    unsharded call's results, in their bits, on the mesh's first device."""
+    import yolov3_tpu_torch.serve as port_serve
+
+    _, model, frames, _ = served
+    calls = []
+
+    def counting(*args):
+        calls.append(args[2].shape[0])
+        return greedy_nms(*args)
+
+    imgs = frames_batch(frames)[:3]
+    if entry == "serve":
+        monkeypatch.setattr(port_serve, "nms_from_candidates", functools.partial(port_nms.nms_from_candidates,
+                                                                                 nms_fn=counting))
+
+        def run(mesh):
+            return build_batched_infer(model, CONF, mesh=mesh)(imgs)
+    elif entry == "val":
+        def run(mesh):
+            return validator.make_forward(model, nms_fn=counting, mesh=mesh)(imgs)
+    elif entry == "batched_nms":
+        pred = torch.from_numpy(random_predictions(np.random.default_rng(3), 3))
+
+        def run(mesh):
+            return port_nms.batched_nms(pred, conf_thres=0.3, iou_thres=0.5, max_det=50, max_nms=400,
+                                        nms_fn=counting, spmd_mesh=mesh)
+    else:
+        cands = [torch.from_numpy(a) for a in random_candidates(np.random.default_rng(4), 3)]
+
+        def run(mesh):
+            return port_nms.nms_from_candidates(*cands, 0.45, 40, nms_fn=counting, spmd_mesh=mesh)
+    mesh = create_mesh(["cpu", "cpu"])
+    got = run(mesh)
+    assert calls == [3]
+    want = run(None)
+    assert calls == [3, 3]
+    assert got[0].device == mesh.devices[0]  # the detections (serving fetches its counts to the host)
+    for g, w in zip(got, want):
+        assert torch.equal(torch.as_tensor(g), torch.as_tensor(w))
+    assert int(torch.as_tensor(got[1]).sum()) > 0
 
 
 @pytest.fixture(scope="module")

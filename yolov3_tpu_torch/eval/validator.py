@@ -38,7 +38,6 @@ detection is right, and the confusion matrix.
 
 from __future__ import annotations
 
-import copy
 import json
 from pathlib import Path
 
@@ -49,7 +48,7 @@ from yolov3_tpu_torch.data.dataset_yaml import check_dataset
 from yolov3_tpu_torch.data.datasets import DataLoader, DetectionDataset
 from yolov3_tpu_torch.eval.metrics import ConfusionMatrix, ap_per_class, process_batch
 from yolov3_tpu_torch.models.detect_head import decode_predictions
-from yolov3_tpu_torch.models.detection import DetectionModel, cast_for_inference, predict_augmented
+from yolov3_tpu_torch.models.detection import DetectionModel, optimize_for_inference, predict_augmented
 from yolov3_tpu_torch.ops.boxes import scale_boxes, xywh2xyxy, xyxy2xywh
 from yolov3_tpu_torch.ops.nms import batched_nms, non_max_suppression
 from yolov3_tpu_torch.train.loss import compute_loss
@@ -309,9 +308,10 @@ def make_forward(model, conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30
     (dets (B, max_det, 6), n (B,)), plus the loss components (3,) when
     `loss_cfg` is given (called with targets and mask then).
 
-    The float32 eval forward, or with half=True the BN-folded bf16 model;
-    `decode_predictions` (augment=True: the TTA passes of
-    `predict_augmented`); multi-label `batched_nms` through `nms_fn`.
+    The float32 eval forward, or with half=True the BN-folded bf16 model of
+    `optimize_for_inference`; `decode_predictions` with the model's
+    `anchor_table()` (augment=True: the TTA passes of `predict_augmented`);
+    multi-label `batched_nms` through `nms_fn`.
     decode_only: return the decoded predictions (B, N, 5+nc) and stop there.
     mesh: a parallel.mesh.Mesh to shard each batch over (see `run`).
     An Ensemble's or a MultiBackend's decoded predictions come from calling it
@@ -333,12 +333,8 @@ def make_forward(model, conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30
                                    max_det=max_det, max_nms=max_nms, nms_fn=nms_fn)
 
         return forward_decoded
-    if half:
-        fused = model.fuse()  # a new model, unless `model` is fused already
-        net = cast_for_inference(fused if fused is not model else copy.deepcopy(model))
-    else:
-        net = model
-    anchors, strides = model.anchors_px, model.spec.strides
+    net = optimize_for_inference(model, bf16=True) if half else model
+    strides = model.spec.strides
 
     def one(net_i, imgs_u8):
         """The forward, the decode and the NMS of one replica on its device:
@@ -354,7 +350,7 @@ def make_forward(model, conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30
                     feats = net_i(x)
             if feats is not None:
                 with span("val/decode"):
-                    pred = decode_predictions(feats, anchors, strides)
+                    pred = decode_predictions(feats, net_i.anchor_table(), strides)
             if decode_only:
                 return pred
             with span("val/nms"):
@@ -368,10 +364,10 @@ def make_forward(model, conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30
 
     @torch.inference_mode()
     def forward(imgs_u8, targets=None, tmask=None):
-        if nets is not None and mesh.divides(len(imgs_u8)):
-            out = mesh.map(lambda i, x: one(nets[i], x), imgs_u8, device=model.device)
-        else:  # one device; under a mesh, a batch it does not divide
+        if mesh is None:
             out = one(net, torch.as_tensor(imgs_u8, device=model.device))
+        else:
+            out = mesh.apply(lambda i, x: one(nets[i], x), imgs_u8)
         if decode_only or loss_cfg is None:
             return out
         dets, n_valid, *feats = out

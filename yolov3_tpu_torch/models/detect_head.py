@@ -89,9 +89,9 @@ def make_grid(ny: int, nx: int, device=None):
 
 def _anchor_table(anchors, nl, device):
     """(nl, na, 2) float32 pixel anchors on `device`. A float32 tensor already
-    there (the served step's, built once a replica) is only reshaped; numpy or a
-    list is copied there, and on a CUDA device the host then waits for the
-    stream."""
+    there (a model's `anchor_table()`, which every entry point hands in) is
+    only reshaped; numpy or a list is copied there, and on a CUDA device the
+    host then waits for the stream."""
     return torch.as_tensor(anchors, dtype=torch.float32, device=device).reshape(nl, -1, 2)
 
 

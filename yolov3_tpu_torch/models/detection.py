@@ -99,6 +99,7 @@ class DetectionModel(nn.Module):
         layers.append(Detect(spec.nc, spec.na, [spec.out_channels(j) for j in detect.f], spec.strides))
         self.model = nn.ModuleList(layers)
         self.names = {i: str(i) for i in range(spec.nc)}
+        self._anchor_tables = {}  # (device, spec.anchors) -> `anchor_table()`; not a buffer: see there
 
     @classmethod
     def from_config(cls, cfg="yolov3-tiny", seed=0, device=None, dtype=torch.float32, ch=3, nc=None,
@@ -155,6 +156,21 @@ class DetectionModel(nn.Module):
     def anchors_px(self):
         return np.array(self.spec.anchors, dtype=np.float32).reshape(self.spec.nl, -1, 2)
 
+    def anchor_table(self):
+        """The (nl, na, 2) float32 pixel anchors on the model's device, the
+        table every decode of the model reads: built once per device and
+        `spec.anchors` (so a swap of the spec's anchors builds a new one), then
+        the same tensor, so no decode copies it from the host and waits there
+        for the queued forward. Not a buffer: a bf16 cast would round it
+        (373 becomes 372), and a model built on `meta` and then `to_empty`
+        would hold it uninitialised. Built outside inference mode, so a
+        grad-recording decode may read a table first built inside it."""
+        key = (self.device, self.spec.anchors)
+        if key not in self._anchor_tables:
+            with torch.inference_mode(False):
+                self._anchor_tables[key] = torch.as_tensor(self.anchors_px, device=self.device)
+        return self._anchor_tables[key]
+
     def num_params(self):
         return sum(p.numel() for p in self.parameters())
 
@@ -206,7 +222,7 @@ class DetectionModel(nn.Module):
         augment=True: the test-time augmentation of `predict_augmented`."""
         if augment:
             return predict_augmented(self, x)
-        return decode_predictions(self(x), self.anchors_px, self.spec.strides)
+        return decode_predictions(self(x), self.anchor_table(), self.spec.strides)
 
     def serving_module(self, pad_lanes=0):
         """This model with the raw NHWC head of the fast serving path
@@ -286,11 +302,12 @@ def predict_augmented(model, x):
     concatenated. x: (B, H, W, C) NHWC in [0, 1]."""
     h, w = x.shape[1:3]
     gs = int(model.stride)
+    anchors = model.anchor_table()
     outs = []
     for si, fi in zip((1.0, 0.83, 0.67), (None, 3, None)):
         xi = x.flip(2) if fi == 3 else (x.flip(1) if fi == 2 else x)
         xi = _scale_img(xi, si, gs)
-        yi = decode_predictions(model(xi), model.anchors_px, model.spec.strides)
+        yi = decode_predictions(model(xi), anchors, model.spec.strides)
         outs.append(_descale_pred(yi, fi, si, (h, w)))
     return torch.cat(_clip_augmented(outs, model.spec.nl), 1)
 

@@ -14,9 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from yolov3_tpu_torch.nn.modules import BN_EPS
 from yolov3_tpu_torch.utils.general import LOGGER
-
-BN_EPS = 1e-3  # must match nn.modules.Conv's BatchNorm epsilon
 
 
 def fuse_state_dict(sd):

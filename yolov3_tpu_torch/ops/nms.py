@@ -22,13 +22,6 @@ from yolov3_tpu_torch.utils.general import select_device
 MAX_WH = 7680  # maximum box width/height used for the class offset
 
 
-def _sharded(spmd_mesh, bs):
-    """Whether a batch of bs runs sharded over `spmd_mesh`: a batch the mesh
-    does not divide runs unsharded, as the JAX package's `_resolve_pallas`
-    routes it."""
-    return spmd_mesh is not None and spmd_mesh.divides(bs)
-
-
 def batched_nms(prediction, conf_thres=0.25, iou_thres=0.45, classes=None, agnostic=False,
                 multi_label=False, max_det=300, max_nms=30000, merge=False, nms_fn=None, spmd_mesh=None):
     """Batched NMS over decoded predictions.
@@ -41,13 +34,14 @@ def batched_nms(prediction, conf_thres=0.25, iou_thres=0.45, classes=None, agnos
     `spmd_mesh`: a parallel.mesh.Mesh; each device takes its rows and runs
     the whole NMS there, the kernel launched once a shard (the JAX package's
     shard_map of the kernel over the data axis), and the results come back
-    to `prediction`'s device. A batch the mesh does not divide runs unsharded.
+    to the mesh's first device. A batch the mesh does not divide runs
+    unsharded (`Mesh.apply`), as the JAX package's `_resolve_pallas` routes it.
     """
-    if _sharded(spmd_mesh, prediction.shape[0]):
-        return spmd_mesh.map(
+    if spmd_mesh is not None:
+        return spmd_mesh.apply(
             lambda _, p: batched_nms(p, conf_thres, iou_thres, classes, agnostic, multi_label, max_det, max_nms,
                                      merge, nms_fn),
-            prediction, device=prediction.device)
+            prediction)
     prediction = prediction.float()
     bs, n, no = prediction.shape
     nc = no - 5
@@ -134,10 +128,9 @@ def nms_from_candidates(boxes, scores, cls_ids, iou_thres=0.45, max_det=300, agn
 
     Returns (out (bs, max_det, 6), n_valid (bs,)).
     """
-    if _sharded(spmd_mesh, boxes.shape[0]):
-        return spmd_mesh.map(
-            lambda _, b, s, c: nms_from_candidates(b, s, c, iou_thres, max_det, agnostic, nms_fn),
-            boxes, scores, cls_ids, device=boxes.device)
+    if spmd_mesh is not None:
+        return spmd_mesh.apply(lambda _, b, s, c: nms_from_candidates(b, s, c, iou_thres, max_det, agnostic, nms_fn),
+                               boxes, scores, cls_ids)
     offset = torch.zeros_like(cls_ids) if agnostic else cls_ids * MAX_WH
     scores = torch.where(scores > 0, scores, -1.0)
     return nms_fn(boxes + offset[..., None], boxes, scores, cls_ids, iou_thres, max_det)

@@ -16,7 +16,8 @@ inserts the collectives. The port has two forms of it:
   each rank is one device, so its gcd device-subset rule has no counterpart.
 - Serving and validation shard a batch in one process over a `Mesh` of local
   devices: a replica of the model on each device, the rows split evenly,
-  each device runs its rows, the results gathered (`Mesh.map`).
+  each device runs its rows, the results gathered (`Mesh.map`); a batch the
+  mesh does not divide runs whole on the first device (`Mesh.apply`).
 
 Every collective here is the identity when no process group is initialized,
 so one process runs as it always did. None is caught: a collective that
@@ -307,15 +308,23 @@ class Mesh:
                 copies[d] = module if d == here else copy.deepcopy(module).to(d)
         return [copies[d] for d in self.devices]
 
-    def map(self, fn, *arrays, device=None):
+    def map(self, fn, *arrays):
         """fn(i, *shards of `arrays` on device i) on each shard, in order; the
-        outputs (a tensor or a tuple of them per shard) concatenated on
-        `device` (default: the first device of the mesh). The shards are
-        issued one after another from this thread: the devices' work
-        overlaps only as far as their launches run ahead of it."""
+        outputs (a tensor or a tuple of them per shard) concatenated on the
+        first device of the mesh. The shards are issued one after another
+        from this thread: the devices' work overlaps only as far as their
+        launches run ahead of it."""
         shards = [self.shard(a) for a in arrays]
         outs = [fn(i, *(s[i] for s in shards)) for i in range(self.size)]
-        return gather(outs, device or self.devices[0])
+        return gather(outs, self.devices[0])
+
+    def apply(self, fn, *arrays):
+        """The split rule of sharded serving, validation and NMS: a batch the
+        mesh divides runs `map(fn, *arrays)`, gathered on the first device; a
+        batch it does not divide runs whole as fn(0, *arrays), the first
+        device's function (MicroBatcher's buckets and the validator's batches
+        divide; a tail batch may not)."""
+        return self.map(fn, *arrays) if self.divides(len(arrays[0])) else fn(0, *arrays)
 
 
 def gather(outs, device):

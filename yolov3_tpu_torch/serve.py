@@ -32,9 +32,10 @@ path's spans since the process started
 Layers, from the socket down: `make_server` (ThreadingHTTPServer, one thread
 a request) -> `build_pipeline`'s predict (letterbox, BGR->RGB, scale-back)
 -> `MicroBatcher` (coalesces concurrent requests into one device call) ->
-`build_batched_infer` (the fast path: BN-folded bf16 forward, the per-scale
-top-k decode through the candidate-score kernel, greedy NMS through the NMS
-kernel; or, with fast=False, the f32 full decode and `batched_nms`).
+`build_batched_infer` (the fast path: `optimize_for_inference`'s BN-folded
+bf16 forward, the per-scale top-k decode through the candidate-score kernel,
+greedy NMS through the NMS kernel; or, with fast=False, the f32 full decode
+and `batched_nms`).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ import numpy as np
 import torch
 
 from yolov3_tpu_torch.models.detect_head import decode_predictions, decode_topk_nhwc
-from yolov3_tpu_torch.models.detection import cast_for_inference
+from yolov3_tpu_torch.models.detection import optimize_for_inference
 from yolov3_tpu_torch.models.loading import load_weights
 from yolov3_tpu_torch.ops.epilogue_cuda import conv_epilogue
 from yolov3_tpu_torch.ops.nms import batched_nms, nms_from_candidates
@@ -73,11 +74,10 @@ def topk_per_level(nl, imgsz):
 def _paths(full_model, serving, conf_thres, iou_thres, max_det, k_per_scale):
     """(full_fn, fast_fn) of one replica: the float32 full path on
     `full_model`, the fast path on the fused bf16 `serving` model (None: no
-    fast path), each on its model's device. The anchor table is copied to
-    that device once, here: a copy from the host in every batch's decode
-    would make the host wait there for the queued forward."""
+    fast path), each on its model's device. Both decodes read the replica's
+    `anchor_table()`, built here, before the first batch."""
     device = full_model.device
-    anchors = torch.as_tensor(full_model.anchors_px, dtype=torch.float32, device=device)
+    anchors = full_model.anchor_table()
     strides = full_model.spec.strides
 
     @torch.inference_mode()
@@ -106,23 +106,14 @@ def _paths(full_model, serving, conf_thres, iou_thres, max_det, k_per_scale):
     return full_fn, fast_fn
 
 
-def _sharded(mesh, fns, device):
-    """fns[i] over shard i of a batch the mesh divides, gathered on `device`;
-    a batch it does not divide runs unsharded through fns[0]."""
-    def run(imgs_u8):
-        if not mesh.divides(len(imgs_u8)):
-            return fns[0](imgs_u8)
-        return mesh.map(lambda i, x: fns[i](x), imgs_u8, device=device)
-
-    return run
-
-
 def build_batched_infer(model, conf_thres=0.25, iou_thres=0.45, max_det=300, fast=True, mesh=None,
-                        k_per_scale=(256, 128, 64), s2d=False):
+                        k_per_scale=None, s2d=False):
     """((B, H, W, 3) uint8 NHWC) -> ((B, max_det, 6) dets, (B,) n), on the model's device.
 
-    fast=True: BN-folded bf16 forward with a raw NHWC head, the per-scale
-    top-k decode (`k_per_scale`; candidate-score kernel) and greedy NMS (NMS
+    fast=True: the BN-folded bf16 forward of `optimize_for_inference` (a
+    new model: `model` itself stays as it is) with a raw NHWC head, the
+    per-scale top-k decode (`k_per_scale`, by default `topk_per_level` of the
+    model's levels at 640 px; candidate-score kernel) and greedy NMS (NMS
     kernel). Per-image, per-level overflow flags from the decode mark dense
     scenes whose above-conf candidates exceed a level's top-k; such a batch
     re-runs through the full path instead of being silently truncated.
@@ -132,8 +123,9 @@ def build_batched_infer(model, conf_thres=0.25, iou_thres=0.45, max_det=300, fas
     `infer.fallbacks` counts the batches that took the second, and
     `infer.level_overflows[i]` those among them that overflowed at level i.
 
-    fast=False returns the full path alone: the float32 unfused forward,
-    `decode_predictions` and `batched_nms` (max_nms 8192).
+    fast=False returns the full path alone: the float32 forward of `model`
+    as given (unfused or fused), `decode_predictions` and `batched_nms`
+    (max_nms 8192).
 
     Spans (utils/tracing.py), a batch each: `serve/copy_in` (the images to
     the device), `serve/forward`, `serve/decode` (top-k decode, the score
@@ -149,9 +141,10 @@ def build_batched_infer(model, conf_thres=0.25, iou_thres=0.45, max_det=300, fas
     batch's rows are split evenly over the devices, each runs its rows
     through the whole path (the score kernel three times and the NMS kernel
     once a shard), and the results are gathered on the mesh's first device,
-    where the model must be. The batch falls back to the full path when any
-    shard overflows. A batch the mesh does not divide runs unsharded on the
-    first device (MicroBatcher's `min_bucket` keeps buckets divisible).
+    where the model must be (`Mesh.apply`). The batch falls back to the full
+    path when any shard overflows. A batch the mesh does not divide runs
+    unsharded on the first device (MicroBatcher's `min_bucket` keeps buckets
+    divisible).
 
     `s2d` (the JAX package's space-to-depth stem, a TPU layout) is an exact
     transform: it is accepted and the plain layout computed.
@@ -160,18 +153,22 @@ def build_batched_infer(model, conf_thres=0.25, iou_thres=0.45, max_det=300, fas
     device = model.device
     if mesh is not None and mesh.devices[0] != device:
         raise ValueError(f"build_batched_infer: the model is on {device}, the mesh starts at {mesh.devices[0]}")
-    serving = cast_for_inference(model.fuse()) if fast else None
+    nl = model.spec.nl
+    k_per_scale = topk_per_level(nl, 640) if k_per_scale is None else k_per_scale
+    serving = optimize_for_inference(model, bf16=True) if fast else None
     if mesh is None:
         full_fn, fast_fn = _paths(full_model, serving, conf_thres, iou_thres, max_det, k_per_scale)
     else:
         fulls, servings = mesh.replicas(full_model), mesh.replicas(serving) if fast else [None] * mesh.size
         paths = [_paths(f, sv, conf_thres, iou_thres, max_det, k_per_scale) for f, sv in zip(fulls, servings)]
-        full_fn = _sharded(mesh, [p[0] for p in paths], device)
-        fast_fn = _sharded(mesh, [p[1] for p in paths], device) if fast else None
+
+        def full_fn(imgs_u8):
+            return mesh.apply(lambda i, x: paths[i][0](x), imgs_u8)
+
+        def fast_fn(imgs_u8):
+            return mesh.apply(lambda i, x: paths[i][1](x), imgs_u8)
     if not fast:
         return span("serve/full")(full_fn)
-
-    nl = model.spec.nl
 
     def infer(imgs_u8):
         with span("serve/copy_in"):

@@ -29,7 +29,7 @@ def bf16_deltas(model, imgsz=256):
     (1, imgsz, imgsz, 3) image of uniform [0, 1) noise, in eval mode."""
     x = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (1, imgsz, imgsz, 3)).astype(np.float32))
     x = x.to(model.device)
-    anchors, strides = model.anchors_px, model.spec.strides
+    anchors, strides = model.anchor_table(), model.spec.strides
     was_training = model.training
     model.eval()
     try:
