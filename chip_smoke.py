@@ -19,7 +19,11 @@ Phases, each printing its result on its own line:
      with a residual): within one bf16 unit in the last place; its device
      time beside its byte bound, the plain version's time and that of the
      three PyTorch passes it replaced;
-  4. the conv3x3 + BatchNorm-statistics kernels against the plain version at
+  3c. the conv + max-pool kernel (csrc/conv_pool.cu) against its plain version
+     at yolov3-tiny's four conv -> max-pool pairs (CONV_POOL_SHAPES, batch 32
+     at 640 px): within one bf16 unit in the last place; each pair's device time beside its bound and beside the
+     three kernels it replaced (cuDNN's conv, the epilogue, PyTorch's pool);
+ 4. the conv3x3 + BatchNorm-statistics kernels against the plain version at
      every stride-1 3x3 conv shape of yolov3, yolov3-spp, yolov3-tiny,
      yolov5s and yolov5s-transformer at 640 px and at small f32 and odd
      shapes; each row names the kernel it took and is run twice for equal
@@ -678,6 +682,25 @@ def bf16_ulps(a, b):
     return int((ordered(a) - ordered(b)).abs().max())
 
 
+CANCEL_FLOOR = 2.0 ** -6  # below it a bf16 unit in the last place (<= 2^-14) nears f32's rounding of a cancelling sum
+
+
+def bf16_ulps_apart(a, b, floor=CANCEL_FLOOR):
+    """(bf16_ulps over the elements where |b| >= floor, the largest absolute
+    difference where |b| < floor). Two float32 sums of the same bf16
+    products in another order differ by float32 rounding, about 1e-6 at
+    these widths; where the sum cancels to near 0 that is many units in the
+    last place of a tiny value: the plain version in float32 on the CPU
+    lies 13184 units from float64 at |v| 2.8e-6 of yolov3-tiny's stem, and
+    within one wherever |v| >= 2^-6. So a conv computed in another order is
+    held to one unit above the floor and to 2^-14 (one unit just under it)
+    below."""
+    big = b.float().abs() >= floor
+    ulps = bf16_ulps(a[big], b[big]) if bool(big.any()) else 0
+    below = float((a.float() - b.float()).abs()[~big].max()) if bool((~big).any()) else 0.0
+    return ulps, below
+
+
 def phase_epilogue(shapes=EPILOGUE_SHAPES, device="cuda"):
     """The conv epilogue kernel (csrc/epilogue.cu) against its plain version
     at the served shapes of EPILOGUE_SHAPES (bf16, channels_last): within one
@@ -729,10 +752,100 @@ def phase_epilogue(shapes=EPILOGUE_SHAPES, device="cuda"):
     return rows
 
 
+# (label, B, Cin, Cout, H, W, keep): yolov3-tiny@640 batch 32's four conv -> max-pool pairs, layers 0/1 to 6/7 (its
+# 8/9, 128 -> 256 channels, is wider than the kernel takes)
+CONV_POOL_SHAPES = (("tiny 0/1 640x640 3->16", 32, 3, 16, 640, 640, False),
+                    ("tiny 2/3 320x320 16->32", 32, 16, 32, 320, 320, False),
+                    ("tiny 4/5 160x160 32->64", 32, 32, 64, 160, 160, False),
+                    ("tiny 6/7 80x80 64->128", 32, 64, 128, 80, 80, False))
+CONV_POOL_KERNEL = "conv_pool"  # in the name of each of csrc/conv_pool.cu's kernels
+
+
+def phase_conv_pool(shapes=CONV_POOL_SHAPES, device="cuda"):
+    """The conv + max-pool kernel (csrc/conv_pool.cu) against its plain
+    version at CONV_POOL_SHAPES (bf16, channels_last, SiLU; cuDNN's float32
+    convolutions without TF32): within one unit in the last place where
+    |v| >= 2^-6 and 2^-14 below (`bf16_ulps_apart`), and the share of pooled
+    elements that differ at all; then each shape's device
+    time beside its bound (x, the pooled output, the unpooled one where kept
+    and the weight once at 3.35 TB/s, or 2 * 9 * Cin * Cout a pixel at
+    989 TFLOP/s, whichever is larger) and beside the three kernels it
+    replaced, cuDNN's conv + `conv_epilogue` + `F.max_pool2d` (`library_ms`:
+    the device time of each side's kernels, one profiler window), and the
+    plain version's time by CUDA events."""
+    import torch.nn.functional as F
+
+    from yolov3_tpu_torch.ops.conv_pool_cuda import conv_pool, conv_pool_plain
+    from yolov3_tpu_torch.ops.epilogue_cuda import conv_epilogue
+
+    allow_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = {}
+    try:
+        for label, B, cin, cout, H, W, keep in shapes:
+            x = torch.rand((B, H, W, cin), generator=gen, device=device).to(torch.bfloat16).permute(0, 3, 1, 2)
+            scale = 3.0 / (9 * cin) ** 0.5
+            weight = ((torch.rand((cout, 3, 3, cin), generator=gen, device=device) * 2 - 1) * scale).to(
+                torch.bfloat16).permute(0, 3, 1, 2)
+            bias = torch.randn((cout,), generator=gen, device=device).to(torch.bfloat16)
+            want = conv_pool_plain(x, weight, bias, "silu", keep)
+            t0 = time.perf_counter()
+            pooled, unpooled = conv_pool(x, weight, bias, "silu", keep)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            apart = [bf16_ulps_apart(pooled, want[0]), bf16_ulps_apart(unpooled, want[1]) if keep else (0, 0.0)]
+            ulps, below = max(u for u, _ in apart), max(d for _, d in apart)
+            differ = float((pooled != want[0]).float().mean())
+            check(ulps <= 1 and below <= 2.0 ** -14, f"conv_pool {label}: {ulps} ulps from the plain version where "
+                                                     f"|v| >= 2^-6, {below:.3e} apart below")
+            check(not keep or torch.equal(pooled, F.max_pool2d(unpooled, 2, 2)),
+                  f"conv_pool {label}: the pooled store is not the max of the unpooled one")
+            del want, pooled, unpooled
+            flops = 2 * 9 * cin * cout * B * H * W
+            nbytes = 2 * (x.numel() + B * cout * (H // 2) * (W // 2) + (B * cout * H * W if keep else 0)
+                          + weight.numel() + cout)
+            bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S) * 1e3
+            bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_OPS_PER_S else "operations"
+
+            def fused():
+                return conv_pool(x, weight, bias, "silu", keep)
+
+            def library():  # the parent's three kernels: cuDNN's conv, the epilogue in place, PyTorch's pool
+                y = conv_epilogue(F.conv2d(x, weight, None, 1, 1), bias, "silu")
+                return F.max_pool2d(y, 2, 2), (y if keep else None)
+
+            with torch.no_grad():
+                ms = device_ms(fused, CONV_POOL_KERNEL)
+                both = ranges_device_ms([("fused", fused), ("library", library)])
+                events_ms = cuda_ms(fused, iters=20)
+                library_events_ms = cuda_ms(library, iters=20)
+                plain_ms = cuda_ms(lambda: conv_pool_plain(x, weight, bias, "silu", keep), iters=3)
+            rows[label] = dict(ulps=ulps, below=below, differ=differ, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                               share=bound_ms / ms, library_ms=both["library"], fused_range_ms=both["fused"],
+                               events_ms=events_ms, library_events_ms=library_events_ms, plain_ms=plain_ms,
+                               gb=nbytes / 1e9, gflop=flops / 1e9)
+            print(f"conv_pool {label} B={B} keep={keep}: first call {first_s:.2f} s; within {ulps} ulp of the plain "
+                  f"version where |v| >= 2^-6 and {below:.2e} below ({differ:.2e} of pooled elements differ); "
+                  f"device {ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}: {nbytes / 1e9:.4f} GB, {flops / 1e9:.2f} GFLOP), {bound_ms / ms:.1%} of the bound, "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s; library (cuDNN conv + conv_epilogue + max_pool2d) "
+                  f"{both['library']:.4f} ms device, {library_events_ms:.4f} ms by events (the kernel "
+                  f"{events_ms:.4f}); plain {plain_ms:.4f} ms", flush=True)
+            del x, weight, bias
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow_tf32
+    total = {k: sum(r[k] for r in rows.values()) for k in ("ms", "bound_ms", "library_ms")}
+    print(f"conv_pool all {len(rows)} pairs: device {total['ms']:.4f} ms, bound {total['bound_ms']:.4f} ms "
+          f"({total['bound_ms'] / total['ms']:.1%}), library {total['library_ms']:.4f} ms", flush=True)
+    return rows
+
+
 KERNEL_GROUPS = (  # kernel-name substrings -> the layer it belongs to, first match wins
     ("K1 greedy_nms", ("greedy_nms",)),
     ("K2 masked_scores", (SCORE_KERNEL,)),
     ("conv epilogue", (EPILOGUE_KERNEL,)),
+    ("conv + max pool", (CONV_POOL_KERNEL,)),
     ("convolutions (cuDNN, cuBLAS)", ("conv", "gemm", "xmma", "cutlass", "sm90", "cudnn", "nhwc", "nvjet")),
     ("sort (top-k)", ("sort", "radix")),
 )
@@ -780,10 +893,12 @@ def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32, label="m
     fallback. Launches over that run: K2 nl times and K1 once a device call,
     and K1 once more for the fallback (K = min(8192, every anchor row)).
     The folded model's convs: the epilogue kernel once a `Conv` a fast path
-    (a device call or the dense batch's). Then ms per batch, its profile and
+    (a device call or the dense batch's), but the conv + max-pool kernel
+    once instead for a conv of `conv_pool_pairs`. Then ms per batch, its profile and
     `check_fast_path`. `label` starts each line printed."""
     from yolov3_tpu_torch.nn.modules import Conv
     from yolov3_tpu_torch.ops import nms as nms_module
+    from yolov3_tpu_torch.ops.conv_pool_cuda import conv_pool
     from yolov3_tpu_torch.ops.epilogue_cuda import conv_epilogue
     from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
     from yolov3_tpu_torch.ops.score_cuda import masked_scores
@@ -811,6 +926,7 @@ def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32, label="m
     greedy_nms.launches = 0
     masked_scores.launches = 0
     conv_epilogue.launches = 0
+    conv_pool.launches = 0
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=n_requests) as pool:
         results = [f.result() for f in [pool.submit(batcher.submit, im) for im in frames]]
@@ -837,7 +953,7 @@ def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32, label="m
         nms_module.greedy_nms = real_nms
         plant_detections(model, base, gains, deltas)
     launches = {"greedy_nms": greedy_nms.launches, "masked_scores": masked_scores.launches,
-                "conv_epilogue": conv_epilogue.launches}
+                "conv_epilogue": conv_epilogue.launches, "conv_pool": conv_pool.launches}
     # --- end of the main path
 
     print(f"{label}: {n_requests} requests in {serve_s:.3f} s = {n_requests / serve_s:.1f} img/s "
@@ -852,14 +968,16 @@ def phase_main_path(rng, model, imgsz=640, n_requests=64, max_batch=32, label="m
     check(max(counts) > 0, f"{label}: no request got a detection")
     check(served_fallbacks == 0, f"{label}: a served batch took the full-decode fallback")
     check(dense_infer.fallbacks == 1, f"{label}: the dense batch did not take the full-decode fallback")
-    # every device call and the dense batch's fast path: K2 once a level, K1 once, the epilogue once a Conv; the
-    # fallback: K1 once more
+    # every device call and the dense batch's fast path: K2 once a level, K1 once, the epilogue once a Conv but
+    # for those of a conv -> max-pool pair, which launch the conv + max-pool kernel instead; the fallback: K1 once more
     calls = batcher.calls + 1
-    convs = sum(isinstance(m, Conv) for m in infer.serving_model.modules())
-    want = {"greedy_nms": calls + 1, "masked_scores": nl * calls, "conv_epilogue": convs * calls}
+    pairs = len(infer.serving_model.conv_pool_pairs)
+    convs = sum(isinstance(m, Conv) for m in infer.serving_model.modules()) - pairs
+    want = {"greedy_nms": calls + 1, "masked_scores": nl * calls, "conv_epilogue": convs * calls,
+            "conv_pool": pairs * calls}
     check(launches == want, f"{label}: launches {launches} in {batcher.calls} device calls and a fallback batch, "
-                            f"expected {want} (K2 {nl}, K1 1 and the epilogue {convs} a call, K1 1 more on the "
-                            "fallback)")
+                            f"expected {want} (K2 {nl}, K1 1, the epilogue {convs} and the conv + max pool {pairs} "
+                            "a call, K1 1 more on the fallback)")
     fallback_k = min(SERVE_MAX_NMS, na * sum((imgsz // s) ** 2 for s in model.spec.strides))
     check(seen_k == [fallback_k], f"{label}: fallback NMS ran at K={seen_k}, expected [{fallback_k}]")
     print(f"{label} requests: n per image mean {np.mean(counts):.1f}, max {max(counts)}; dense batch fell back, "
@@ -3849,6 +3967,7 @@ def main(argv=()):
     nms_rows = phase_nms(rng)
     score = phase_score(rng)
     epilogue = phase_epilogue()
+    conv_pool_rows = phase_conv_pool()
     from yolov3_tpu_torch.models.detection import DetectionModel
 
     model = DetectionModel.from_config("yolov3", seed=0)  # full width, nc=80, on the card
@@ -3933,9 +4052,15 @@ def main(argv=()):
              **{k: epilogue[EPILOGUE_SHAPES[0][0]][k] for k in ("ms", "plain_ms", "bound_ms")}, bound_by="bytes",
              library_ms=epilogue[EPILOGUE_SHAPES[0][0]]["passes_ms"],
              family_serve_launches={k: family_launches[k]["serve"]["conv_epilogue"] for k in FAMILY}),
+        dict(name="conv_pool", route="cuda", source="yolov3_tpu_torch/csrc/conv_pool.cu", replaces=None,
+             launches=launches["conv_pool"], max_ulps=max(r["ulps"] for r in conv_pool_rows.values()),
+             **{k: conv_pool_rows[CONV_POOL_SHAPES[0][0]][k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+             family_serve_launches={k: family_launches[k]["serve"]["conv_pool"] for k in FAMILY}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"nms_shapes": nms_rows, "conv_bn_shapes": conv_rows, "epilogue_shapes": epilogue,
+                      "conv_pool_shapes": conv_pool_rows,
                       "main_path": e2e, "http": http,
                       "fast_false": fast_false, "val": val, "merge": merge, "save_hybrid": hybrid, "train": train,
                       "remat": remat, "trainer": trainer, "jpeg": jpeg, "detect": detect, "zoo": zoo,

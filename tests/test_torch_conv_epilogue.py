@@ -285,21 +285,28 @@ def test_wrapper_refuses_other_layouts(card):
         conv_epilogue(cl, bias[:8], "silu")
 
 
-@pytest.mark.parametrize("name,imgsz,bs", [("yolov3", 640, 2), ("yolov5x6", 1280, 1)])
+@pytest.mark.parametrize("name,imgsz,bs", [("yolov3", 640, 2), ("yolov5x6", 1280, 1), ("yolov3-tiny", 640, 2)])
 def test_one_launch_per_folded_conv_of_a_served_batch(card, name, imgsz, bs):
+    """The epilogue once a folded `Conv` a served batch, but for the convs
+    of a conv -> max-pool pair, which launch `conv_pool` instead: yolov3-tiny's
+    first four (ops/conv_pool_cuda.py), none in yolov3 or yolov5x6."""
     from yolov3_tpu_torch import serve
+    from yolov3_tpu_torch.ops.conv_pool_cuda import conv_pool
 
     model = DetectionModel.from_config(name, seed=0, device=card)
     infer = serve.build_batched_infer(model, k_per_scale=serve.topk_per_level(model.spec.nl, imgsz))
     convs = [m for m in infer.serving_model.modules() if isinstance(m, Conv)]
     shortcuts = sum(1 for m in infer.serving_model.modules() if isinstance(m, (Bottleneck, CrossConv)) and m.add)
+    pairs = len(infer.serving_model.conv_pool_pairs)
     imgs = torch.randint(0, 256, (bs, imgsz, imgsz, 3), dtype=torch.uint8, device=card)
     infer(imgs)
     launches, routes = conv_epilogue.launches, dict(conv_epilogue.route_launches)
+    pool_launches = conv_pool.launches
     infer(imgs)
     torch.cuda.synchronize(card)
     moved = {k: v - routes[k] for k, v in conv_epilogue.route_launches.items()}
-    assert conv_epilogue.launches - launches == len(convs)
-    assert moved["silu_residual"] == shortcuts and moved["silu"] == len(convs) - shortcuts
-    if name == "yolov3":
-        assert (len(convs), shortcuts) == (72, 23)
+    assert conv_epilogue.launches - launches == len(convs) - pairs
+    assert conv_pool.launches - pool_launches == pairs
+    assert moved["silu_residual"] == shortcuts and moved["silu"] == len(convs) - pairs - shortcuts
+    assert (len(convs), shortcuts, pairs) == {"yolov3": (72, 23, 0), "yolov5x6": (159, 32, 0),
+                                              "yolov3-tiny": (11, 0, 4)}[name]

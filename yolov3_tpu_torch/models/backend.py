@@ -30,6 +30,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from yolov3_tpu_torch.ops import conv_pool_cuda  # noqa: F401 — registers conv_pool, which a bf16 pt2 calls
 from yolov3_tpu_torch.ops import epilogue_cuda  # noqa: F401 — registers conv_epilogue, which a bf16 pt2 calls
 from yolov3_tpu_torch.ops import nms_cuda  # noqa: F401 — registers greedy_nms, which a pt2 with NMS calls
 from yolov3_tpu_torch.utils.general import LOGGER, select_device

@@ -37,7 +37,8 @@ from yolov3_tpu_torch.models.fuse import fuse_state_dict
 from yolov3_tpu_torch.models.spec import ModelSpec, parse_spec
 from yolov3_tpu_torch.nn import activations
 from yolov3_tpu_torch.nn.activations import AconC, MetaAconC
-from yolov3_tpu_torch.nn.modules import INPUT_CHANNEL_OPS, MODULE_REGISTRY, MULTI_INPUT_OPS, Conv, recomputing
+from yolov3_tpu_torch.nn.modules import (INPUT_CHANNEL_OPS, MODULE_REGISTRY, MULTI_INPUT_OPS, Conv, MaxPool,
+                                         recomputing)
 from yolov3_tpu_torch.utils.general import LOGGER, select_device
 
 
@@ -100,6 +101,7 @@ class DetectionModel(nn.Module):
         self.model = nn.ModuleList(layers)
         self.names = {i: str(i) for i in range(spec.nc)}
         self._anchor_tables = {}  # (device, spec.anchors) -> `anchor_table()`; not a buffer: see there
+        self.conv_pool_pairs = {}  # conv layer -> keep its unpooled output; set by `optimize_for_inference`
 
     @classmethod
     def from_config(cls, cfg="yolov3-tiny", seed=0, device=None, dtype=torch.float32, ch=3, nc=None,
@@ -212,7 +214,7 @@ class DetectionModel(nn.Module):
                 out, saved = checkpoint(_run_layers, seg, out, saved, prev, self.spec.save, use_reentrant=False,
                                         preserve_rng_state=False, context_fn=_recompute_context)
                 prev = seg[-1][0].i
-        out, saved = _run_layers(body[cut:], out, saved, prev, self.spec.save)
+        out, saved = _run_layers(body[cut:], out, saved, prev, self.spec.save, self.conv_pool_pairs)
         prev = self.spec.layers[-2].i
         detect = self.spec.layers[-1]
         return self.model[-1]([out if j == prev else saved[j] for j in detect.f], raw=raw, raw_pad=raw_pad)
@@ -272,17 +274,28 @@ class _ServingGraph(nn.Module):
         return self.model(x, raw=True, raw_pad=self.pad_lanes)
 
 
-def _run_layers(layers, out, saved, prev, save):
+def _run_layers(layers, out, saved, prev, save, pairs=None):
     """Run (layer spec, module) pairs from the output of layer `prev`; returns
     the last output and a new dict of the outputs of the layers in `save`
     (the dict given is left as it is: a checkpoint recompute runs again on
-    the same arguments)."""
+    the same arguments). A conv of `pairs` (`conv_pool_pairs`) whose pool
+    is in `layers` runs with that pool in one launch where the call allows
+    (`Conv.forward_pooled`); its unpooled output is then kept only if
+    `pairs` says so."""
     saved = dict(saved)
-    for ls, m in layers:
-        if ls.op in MULTI_INPUT_OPS:
+    pooled = None
+    for n, (ls, m) in enumerate(layers):
+        if pooled is not None:  # this MaxPool was computed with the conv before it
+            out, pooled = pooled, None
+        elif ls.op in MULTI_INPUT_OPS:
             out = m([out if j == prev else saved[j] for j in ls.f])
         else:
-            out = m(out if ls.f[0] == prev else saved[ls.f[0]])
+            x = out if ls.f[0] == prev else saved[ls.f[0]]
+            both = m.forward_pooled(x, pairs[ls.i]) if pairs and ls.i in pairs and n + 1 < len(layers) else None
+            if both is None:
+                out = m(x)
+            else:
+                pooled, out = both
         prev = ls.i
         if ls.i in save:
             saved[ls.i] = out
@@ -349,14 +362,34 @@ def _clip_augmented(y, nl):
 def optimize_for_inference(model: DetectionModel, bf16=None) -> DetectionModel:
     """The inference form (yolov3_tpu/models/detection.py optimize_for_inference):
     Conv+BN folded, and bf16 weights when `bf16`, which None makes true on
-    the card and false on the CPU (the JAX `half=None`). A new model; this
-    one is left as it is."""
+    the card and false on the CPU (the JAX `half=None`); its conv -> max-pool
+    pairs marked (`conv_pool_pairs`). A new model; this one is left as it is."""
     fused = model.fuse()
     if fused is model:
         fused = copy.deepcopy(model)
     if bf16 is None:
         bf16 = model.device.type == "cuda"
+    fused.conv_pool_pairs = conv_pool_pairs(fused)
     return cast_for_inference(fused) if bf16 else fused
+
+
+def conv_pool_pairs(model: DetectionModel) -> dict:
+    """{conv layer: whether a later layer reads its unpooled output} of the
+    pairs `conv_pool` computes in one launch: a `Conv` layer that `pools`
+    (folded, 3x3, stride 1, padding 1, an activation and widths the kernel
+    takes), followed by a `MaxPool(2, 2, 0)` layer that reads it. The
+    unpooled output is kept where the conv's index is in `spec.save`.
+    yolov3-tiny has four (layers 0, 2, 4 and 6); its layer 8 (128 -> 256
+    channels, wider than `route_of` takes), its ZeroPad + `MaxPool(2, 1)`,
+    and the pools inside SPP and SPPF, are no such pair."""
+    layers = model.spec.layers
+    pairs = {}
+    for ls, nxt in zip(layers, layers[1:]):
+        conv, pool = model.model[ls.i], model.model[nxt.i]
+        if (type(conv) is Conv and conv.pools() and isinstance(pool, MaxPool) and (pool.k, pool.s, pool.p) == (2, 2, 0)
+                and list(nxt.f) == [ls.i]):
+            pairs[ls.i] = ls.i in model.spec.save
+    return pairs
 
 
 def cast_for_inference(model: DetectionModel, dtype=torch.bfloat16) -> DetectionModel:

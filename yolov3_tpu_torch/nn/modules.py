@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from yolov3_tpu_torch.nn.activations import get_activation, identity, leaky_relu, silu
 from yolov3_tpu_torch.ops.conv_bn_cuda import conv3x3_bn_stats
+from yolov3_tpu_torch.ops.conv_pool_cuda import conv_pool, route_of
 from yolov3_tpu_torch.ops.epilogue_cuda import conv_epilogue, in_vector_layout
 from yolov3_tpu_torch.parallel.mesh import all_reduce_sum, statistics_synchronized, world_size
 
@@ -153,7 +154,11 @@ class Conv(nn.Module):
     float32 and float16, train mode, a recorded graph, other activations)
     runs the conv with its bias, the activation and the residual add as
     PyTorch ops. `residual` (a Bottleneck's shortcut) is added after the
-    activation either way."""
+    activation either way.
+
+    Where a `MaxPool(2, 2, 0)` follows and `pools` (the structure) allows,
+    `forward_pooled` computes this conv and that pool in one `conv_pool`
+    launch, under the epilogue's conditions and for even H and W."""
 
     def __init__(self, c1, c2, k=1, s=1, p=None, g=1, d=1, act=True, fused=False):
         super().__init__()
@@ -190,6 +195,26 @@ class Conv(nn.Module):
         if residual is not None and not (residual.is_cuda and residual.dtype == x.dtype):
             return None
         return act
+
+    def pools(self):
+        """Whether `conv_pool` computes this conv: folded, 3x3, stride 1,
+        padding 1, one group, no dilation, an activation of `EPILOGUE_ACTS`
+        and widths of one of the kernel's routes (`route_of`)."""
+        c = self.conv
+        return (self.bn is None and c.bias is not None and c.kernel_size == (3, 3) and c.stride == (1, 1)
+                and c.padding == (1, 1) and c.groups == 1 and c.dilation == (1, 1)
+                and EPILOGUE_ACTS.get(self.act) is not None and route_of(c.in_channels, c.out_channels) is not None)
+
+    def forward_pooled(self, x, keep):
+        """(pooled, unpooled) of this conv and the `MaxPool(2, 2, 0)` after it
+        in one `conv_pool` launch (unpooled None unless `keep`), or None where
+        this call takes the separate layers: the epilogue's conditions
+        (`_epilogue_act`), and even H and W."""
+        act = self._epilogue_act(x, None)
+        if act is None or x.dim() != 4 or x.shape[2] % 2 or x.shape[3] % 2:
+            return None
+        c = self.conv
+        return conv_pool(in_vector_layout(x), c.weight, c.bias, act, keep)
 
     def _conv_bn_train(self, x):
         bn = self.bn

@@ -20,7 +20,8 @@ y2, conf, cls], ...] rounded to 4 places, names: {...}, speed_ms}. GET
 requests, `counters` (the fast path's `infer.fallbacks` and
 `infer.level_overflows`, the NMS kernel's `greedy_nms.launches` and
 `greedy_nms.route_launches`, the conv epilogue kernel's
-`conv_epilogue.launches` and `conv_epilogue.route_launches`), and
+`conv_epilogue.launches` and `conv_epilogue.route_launches`, the conv +
+max-pool kernel's `conv_pool.launches` and `conv_pool.route_launches`), and
 `stages`: {span name: {count, total_s, p50_ms, p95_ms}} of the request
 path's spans since the process started
 (p50 / p95 over each one's last 1024), `batcher/wait` (the oldest request's queue wait a device call),
@@ -53,6 +54,7 @@ import torch
 from yolov3_tpu_torch.models.detect_head import decode_predictions, decode_topk_nhwc
 from yolov3_tpu_torch.models.detection import optimize_for_inference
 from yolov3_tpu_torch.models.loading import load_weights
+from yolov3_tpu_torch.ops.conv_pool_cuda import conv_pool
 from yolov3_tpu_torch.ops.epilogue_cuda import conv_epilogue
 from yolov3_tpu_torch.ops.nms import batched_nms, nms_from_candidates
 from yolov3_tpu_torch.ops.nms_cuda import greedy_nms
@@ -370,7 +372,9 @@ def make_server(weights, host="0.0.0.0", port=8507, imgsz=640, conf_thres=0.25, 
                                  "greedy_nms.launches": greedy_nms.launches,
                                  "greedy_nms.route_launches": dict(greedy_nms.route_launches),
                                  "conv_epilogue.launches": conv_epilogue.launches,
-                                 "conv_epilogue.route_launches": dict(conv_epilogue.route_launches)},
+                                 "conv_epilogue.route_launches": dict(conv_epilogue.route_launches),
+                                 "conv_pool.launches": conv_pool.launches,
+                                 "conv_pool.route_launches": dict(conv_pool.route_launches)},
                     "stages": stats(("batcher/", "pipeline/", "serve/")),
                 })
             else:
